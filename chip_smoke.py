@@ -1,0 +1,515 @@
+#!/usr/bin/env python3
+"""Smoke run of lastz_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py      # every phase, one card
+
+Phases, one line each (any failure exits nonzero):
+  1 toolchain  card name and power limit, torch / CUDA / nvcc versions,
+               and the build of csrc/*.cu into lastz_tpu_torch/build/
+  2 kernels    each kernel against its plain PyTorch version on the
+               card, exactly, at the main path's shapes: K1 (y-drop
+               chunk, 128 lanes x 1536 columns x 1024 rows, the five
+               cases of tests/test_ydrop_pallas_exact.py, with and
+               without link bytes), K2 (x-drop
+               scan, 2M hits) and the traceback walk; times each next
+               to its plain version with CUDA events
+  3 main       the default run `lastz_tpu_torch.cli t.fa q.fa --stats`
+               on a 4 Mbp synthetic pair (bench.py's ensure_pair
+               recipe, seed 42: 600 conserved 2-6 kbp segments at
+               72-85% identity), with every launch counter reset
+               before it; requires launches of all three kernels, a
+               nonzero device gapped share and the device seed search,
+               then runs lastz_tpu's host path on the same pair and
+               requires byte-equal LAV
+
+The line before the last is the kernel table as JSON; the last line is
+{"ok": true, "device": {...}}.  Nothing of JAX is imported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+PAIR_BP = 4_000_000
+K1_SHAPE = dict(B=128, rows=1024, W=1536)
+K2_HITS = 1 << 21
+# one production mega launch: 64 anchors x 2 directions
+TB_SHAPE = dict(Bh=64, W=1536, rows=1024, blocks=8, n=6000)
+# (name, y_drop, divergence, trim_to_peak, tb_cap, chunks, seed): the
+# five cases of tests/test_ydrop_pallas_exact.py:96-116
+K1_CASES = [
+    ("basic", 3000, 0.12, True, 1 << 20, 1, 1),
+    ("multi_chunk_resume", 4000, 0.08, True, 1 << 20, 3, 2),
+    ("boundary_noytrim", 3000, 0.10, False, 1 << 20, 1, 3),
+    ("truncation", 3000, 0.10, True, 600, 1, 4),
+    ("high_divergence", 900, 0.45, True, 1 << 20, 1, 5),
+]
+
+
+def say(phase, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() on the card, after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def max_abs_diff(a, b) -> int:
+    import torch
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+
+def phase_toolchain():
+    import torch
+    from lastz_tpu_torch.kernels import build
+    card = card_line()
+    print(card, flush=True)
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    t0 = time.monotonic()
+    lib = build.library_path()
+    build.load()
+    say("toolchain", card=card, torch=torch.__version__,
+        cuda=torch.version.cuda, nvcc=nvcc[-1], python=sys.version.split()[0],
+        build_s=round(time.monotonic() - t0, 3),
+        library=os.path.relpath(lib, ROOT))
+    log = lib[:-3] + ".log"
+    if os.path.exists(log):
+        with open(log) as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print("  ptxas:", line.strip(), flush=True)
+    return card
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+
+
+def _k1_inputs(rng, B, rows, W, chunks, div):
+    from lastz_tpu.core.scoring import new_dna_score_set
+    from lastz_tpu_torch.ops.ydrop_exact import make_compact_alphabet
+    n = rows * (chunks + 1) + W + 64
+    sc = new_dna_score_set()
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    s1 = alpha[rng.integers(0, 4, n)]
+    s2 = s1.copy()
+    mut = rng.random(n) < div
+    s2[mut] = alpha[rng.integers(0, 4, mut.sum())]
+    code_map, subsmall = make_compact_alphabet([s1, s2], sc.sub)
+    a_full = np.stack([code_map[s1[o:o + rows * chunks + 8]]
+                       for o in rng.integers(0, 32, B)])
+    b_full = np.stack([code_map[s2[o:o + rows * chunks + W + 8]]
+                       for o in rng.integers(0, 32, B)])
+    return sc, subsmall, a_full, b_full
+
+
+def check_k1(dev):
+    """K1 against ydrop_chunk_plain on the five cases, chunk by chunk,
+    windows derived from the (asserted equal) state as the JAX test
+    does.  Returns (max_abs_err, kernel ms, plain ms) of the basic
+    case's first chunk."""
+    import torch
+    from lastz_tpu_torch.ops.ydrop_cuda import ydrop_chunk
+    from lastz_tpu_torch.ops.ydrop_exact import (fresh_state_np,
+                                                 ydrop_chunk_plain)
+    B, rows, W = K1_SHAPE["B"], K1_SHAPE["rows"], K1_SHAPE["W"]
+    err = 0
+    times = None
+    for name, y_drop, div, trim, tb_cap, chunks, seed in K1_CASES:
+        rng = np.random.default_rng(seed)
+        sc, subsmall, a_full, b_full = _k1_inputs(rng, B, rows, W, chunks,
+                                                  div)
+        ge = int(sc.gap_extend)
+        goe = int(sc.gap_open + sc.gap_extend)
+        Ms = np.full(B, a_full.shape[1] - 2, np.int32)
+        Ns = np.full(B, b_full.shape[1] - 2, np.int32)
+        kw = dict(gap_e=ge, gap_oe=goe, y_drop=y_drop, lanes=W, rows=rows,
+                  alpha=16, trim_to_peak=trim, tb_cap=tb_cap)
+        st_np, _ = fresh_state_np(Ns.astype(np.int64), ge, goe, y_drop, W,
+                                  B)
+        state = {k: torch.from_numpy(v).to(dev) for k, v in st_np.items()}
+        prev_off = np.zeros(B, np.int64)
+        sub_t = torch.from_numpy(subsmall).to(dev)
+        n_chunks = 0
+        for chunk in range(chunks):
+            done = state["done"].cpu().numpy()
+            row_base = state["row"].cpu().numpy().astype(np.int64) - 1
+            b_off = np.where(done, prev_off,
+                             state["LY"].cpu().numpy().astype(np.int64))
+            shift = (b_off - prev_off).astype(np.int32)
+            prev_off = b_off.copy()
+            a_win = np.zeros((B, rows), np.int32)
+            b_win = np.zeros((B, W), np.int32)
+            for b in range(B):
+                lo = int(row_base[b])
+                src = a_full[b, lo: lo + rows]
+                a_win[b, : len(src)] = src
+                lo2 = int(b_off[b])
+                if lo2 == 0:
+                    src = b_full[b, : W - 1]
+                    b_win[b, 1: 1 + len(src)] = src
+                else:
+                    src = b_full[b, lo2 - 1: lo2 - 1 + W]
+                    b_win[b, : len(src)] = src
+            args = tuple(torch.from_numpy(a).to(dev) for a in
+                         (a_win, b_win, b_off.astype(np.int32), shift, Ms,
+                          Ns))
+            st_k, tb_k = ydrop_chunk(*args, state, sub_t, **kw)
+            # the score-only mode of the main path's continuation
+            st_s, tb_s = ydrop_chunk(*args, state, sub_t, **kw,
+                                     want_tb=False)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            st_p, tb_p = ydrop_chunk_plain(*args, state, sub_t, **kw)
+            torch.cuda.synchronize()
+            plain_ms = 1000 * (time.monotonic() - t0)
+            if tb_s is not None:
+                raise AssertionError("K1 score-only mode returned link bytes")
+            for k in st_p:
+                for mode, st in (("", st_k), (" score-only", st_s)):
+                    e = max_abs_diff(st[k], st_p[k])
+                    if e:
+                        raise AssertionError(
+                            f"K1{mode} {name} chunk {chunk}: state[{k}] "
+                            f"differs by {e}")
+            e = max_abs_diff(tb_k, tb_p)
+            if e:
+                raise AssertionError(f"K1 {name} chunk {chunk}: tb differs")
+            if times is None:
+                ms = cuda_ms(lambda: ydrop_chunk(*args, state, sub_t, **kw),
+                             5)
+                times = (ms, plain_ms)
+            err = max(err, e)
+            state = st_k
+            n_chunks += 1
+            if bool(state["done"].all()):
+                break
+        say("kernels", kernel="ydrop_chunk", case=name, chunks=n_chunks,
+            rows_used_max=int(state["rows_used"].max()),
+            done=int(state["done"].sum()), equal=True)
+    return err, times[0], times[1]
+
+
+def _related_codes(rng, n, ident):
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    s1 = alpha[rng.integers(0, 4, n)]
+    s2 = s1.copy()
+    mut = rng.random(n) < (1 - ident)
+    s2[mut] = alpha[rng.integers(0, 4, mut.sum())]
+    return s1, s2
+
+
+def check_k2(dev):
+    """K2 against xdrop_scan_plain on 2M hits of a 4 Mbp pair: half on
+    the conserved diagonal (long scans inside its segments), half
+    random (short)."""
+    import torch
+    from lastz_tpu.core.scoring import new_dna_score_set
+    from lastz_tpu_torch.device import carry_state
+    from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
+    from lastz_tpu_torch.ops.hitgen import xdrop_scan_plain
+    rng = np.random.default_rng(7)
+    n = PAIR_BP
+    # unrelated background with a conserved 3 kbp segment (85%
+    # identity) on diagonal 0 every 10 kbp, as in the main path's pair
+    s1, s2 = _related_codes(rng, n, 0.85)
+    bg = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)]
+    keep = (np.arange(n) % 10_000) < 3_000
+    s2 = np.where(keep, s2, bg)
+    state = carry_state(s1, s2, new_dna_score_set().sub, dev)
+    H = K2_HITS
+    pos1 = rng.integers(19, n, H)
+    pos2 = np.where(rng.random(H) < 0.5, pos1,
+                    rng.integers(19, n, H))
+    diag = pos1 - pos2
+    n_l = pos1 - np.maximum(diag, 0)
+    n_r = np.maximum(np.minimum(n, n + diag) - pos1, 0)
+    t = [torch.from_numpy(a.astype(np.int32)).to(dev)
+         for a in (pos1, pos2, n_l, n_r)]
+    subflat = state["subsmall_t"].reshape(-1)
+    args = (state["seq1p"], state["seq2p"], subflat, 16, *t, 910)
+    got = xdrop_scan(*args)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ref = (xdrop_scan_plain(state["seq1p"], state["seq2p"], subflat, 16,
+                            t[0] - 1, t[1] - 1, t[2], 910, -1),
+           xdrop_scan_plain(state["seq1p"], state["seq2p"], subflat, 16,
+                            t[0], t[1], t[3], 910, +1))
+    torch.cuda.synchronize()
+    plain_ms = 1000 * (time.monotonic() - t0)
+    err = 0
+    for side, g, r in zip(("left", "right"), got, ref):
+        for name, a, b in zip(("consumed", "best", "kbest"), g, r):
+            e = max_abs_diff(a, b)
+            if e:
+                raise AssertionError(f"K2 {side} {name} differs by {e}")
+            err = max(err, e)
+    ms = cuda_ms(lambda: xdrop_scan(*args), 5)
+    say("kernels", kernel="xdrop_scan", hits=H,
+        mean_consumed_right=float(got[1][0].float().mean()), equal=True)
+    return err, ms, plain_ms
+
+
+def check_traceback(dev):
+    """The traceback kernel against traceback_mega_plain on one
+    production mega launch: 64 anchors on a related 6 kbp pair, both
+    directions, 8 blocks of 1024 rows over a 1536-column window."""
+    import torch
+    from lastz_tpu.core.scoring import new_dna_score_set
+    from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega
+    from lastz_tpu_torch.ops.ydrop_exact import (fresh_state_np,
+                                                 make_compact_alphabet,
+                                                 traceback_mega_plain,
+                                                 ydrop_mega)
+    rng = np.random.default_rng(11)
+    Bh, W, rows, blocks, n = (TB_SHAPE[k] for k in
+                              ("Bh", "W", "rows", "blocks", "n"))
+    s1, s2 = _related_codes(rng, n, 0.85)
+    sc = new_dna_score_set()
+    code_map, subsmall = make_compact_alphabet([s1, s2], sc.sub)
+    ge = int(sc.gap_extend)
+    goe = int(sc.gap_open + sc.gap_extend)
+    a1 = rng.integers(n // 60, n - n // 60, Bh)
+    A1 = np.concatenate([a1, a1]).astype(np.int32)
+    REV = np.arange(2 * Bh) >= Bh
+    M = np.where(REV, A1 + 1, n - (A1 + 1)).astype(np.int32)
+    N = M.copy()
+    st_np, _ = fresh_state_np(N.astype(np.int64), ge, goe, 9400, W, 2 * Bh)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    lo = T(np.zeros(2 * Bh, np.int32))
+    hi = T(np.full(2 * Bh, n, np.int32))
+    st, _, packed, tb_all, row_lo, row_hi, col0 = ydrop_mega(
+        T(code_map[s1].astype(np.int8)), T(code_map[s2].astype(np.int8)),
+        T(A1), T(A1), lo, hi, lo, hi, T(REV), T(M), T(N),
+        {k: T(v) for k, v in st_np.items()}, T(np.zeros(2 * Bh, np.int32)),
+        T(subsmall), gap_e=ge, gap_oe=goe, y_drop=9400, lanes=W, rows=rows,
+        max_blocks=blocks, alpha=16, trim_to_peak=True,
+        tb_cap=80 * 1024 * 1024)
+    want = st["done"]
+    cap = blocks * rows + W + 512
+    args = (tb_all, row_lo, row_hi, col0, packed[12], st["end1"],
+            st["end2"], want, cap)
+    got = traceback_mega(*args)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ref = traceback_mega_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1000 * (time.monotonic() - t0)
+    err = 0
+    for name, a, b in zip(("ops", "n", "row", "col"), got, ref):
+        e = max_abs_diff(a, b)
+        if e:
+            raise AssertionError(f"traceback {name} differs by {e}")
+        err = max(err, e)
+    ms = cuda_ms(lambda: traceback_mega(*args), 3)
+    say("kernels", kernel="ydrop_traceback", lanes=2 * Bh,
+        walked=int(want.sum()), max_steps=int(got[1].max()), equal=True)
+    return err, ms, plain_ms
+
+
+def phase_kernels(card):
+    import torch
+    dev = torch.device("cuda")
+    rows = []
+    for name, fn, src, repl in (
+            ("ydrop_chunk", check_k1, "lastz_tpu_torch/csrc/ydrop_chunk.cu",
+             "lastz_tpu/ops/ydrop_pallas_exact.py:79"),
+            ("xdrop_scan", check_k2, "lastz_tpu_torch/csrc/xdrop_scan.cu",
+             "lastz_tpu/ops/xdrop_pallas.py:91"),
+            ("ydrop_traceback", check_traceback,
+             "lastz_tpu_torch/csrc/ydrop_traceback.cu",
+             "lastz_tpu/ops/ydrop_exact.py:675")):
+        err, ms, plain_ms = fn(dev)
+        rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        say("kernels", kernel=name, tolerance=0, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, card=card)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+# ---------------------------------------------------------------------------
+
+
+def _write_fasta(path, name, s):
+    with open(path, "w") as f:
+        f.write(">" + name + "\n")
+        for i in range(0, len(s), 80):
+            f.write(bytes(s[i:i + 80]).decode() + "\n")
+
+
+def write_pair(tdir):
+    """bench.py's ensure_pair recipe (seed 42): conserved 2-6 kbp
+    segments at 72-85% identity scattered through random background."""
+    rng = np.random.default_rng(42)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    n = PAIR_BP
+    t = alpha[rng.integers(0, 4, n)]
+
+    def mutate(seg, ident):
+        out = []
+        i = 0
+        m = len(seg)
+        while i < m:
+            r = rng.random()
+            if r < 0.01:
+                out.append(alpha[rng.integers(0, 4)])
+            elif r < 0.02:
+                i += 1
+            else:
+                if rng.random() < (1 - ident):
+                    out.append(alpha[rng.integers(0, 4)])
+                else:
+                    out.append(seg[i])
+                i += 1
+        return np.array(out, dtype=np.uint8)
+
+    q_parts = []
+    for _ in range(150 * (n // 1_000_000)):
+        L = int(rng.integers(2000, 6000))
+        p = int(rng.integers(0, n - L))
+        f = int(rng.integers(1000, 5000))
+        q_parts.append(alpha[rng.integers(0, 4, f)])
+        ident = 0.72 + 0.13 * rng.random()
+        q_parts.append(mutate(t[p:p + L], ident))
+    q = np.concatenate(q_parts)
+    tp = os.path.join(tdir, "t.fa")
+    qp = os.path.join(tdir, "q.fa")
+    _write_fasta(tp, "t", t)
+    _write_fasta(qp, "q", q)
+    return tp, qp, len(t), len(q)
+
+
+def phase_main(card):
+    """Returns each kernel's launch count in the port's main-path run."""
+    import torch
+    import lastz_tpu.stats as lstats
+    from lastz_tpu_torch import cli
+    from lastz_tpu_torch.ops import xdrop_cuda, ydrop_cuda
+    from lastz_tpu_torch.search import device_hits
+    counters = {"ydrop_chunk": ydrop_cuda.ydrop_chunk,
+                "xdrop_scan": xdrop_cuda.xdrop_scan,
+                "ydrop_traceback": ydrop_cuda.traceback_mega}
+    with tempfile.TemporaryDirectory() as tdir:
+        t0 = time.monotonic()
+        tp, qp, lt, lq = write_pair(tdir)
+        say("main", pair_bp=[lt, lq], write_s=round(time.monotonic() - t0, 3))
+        argv = [tp, qp, "--stats"]
+        os.environ["LASTZ_TORCH_DEVICE"] = "cuda"
+        for fn in counters.values():
+            fn.launches = 0
+        device_hits.device_search.runs = 0
+        port_out = os.path.join(tdir, "port.lav")
+        err = io.StringIO()
+        t0 = time.monotonic()
+        with open(port_out, "w") as f, contextlib.redirect_stdout(f), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        port_s = time.monotonic() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        st = lstats.current
+        if rc != 0:
+            raise RuntimeError(f"port CLI exited {rc}: "
+                               f"{err.getvalue()[-2000:]}")
+        seed_runs = device_hits.device_search.runs
+        say("main", run="lastz_tpu_torch.cli", wall_s=port_s,
+            launches=launches, device_seed_searches=seed_runs,
+            gapped_anchors=st.gapped_anchors, gapped_device=st.gapped_device,
+            gapped_host=st.gapped_host, hsps=st.hsps,
+            alignments=st.alignments,
+            timers={k: round(v, 3) for k, v in st.timers.items()},
+            extra=st.extra, card=card)
+        for k, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{k} was not launched on the main path")
+        if st.gapped_device <= 0:
+            raise AssertionError("no anchor was extended on the device")
+        if seed_runs <= 0:
+            raise AssertionError("the seed stage did not run through "
+                                 "lastz_tpu_torch's device_search")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("LASTZ_TPU_")}
+        host_out = os.path.join(tdir, "host.lav")
+        t0 = time.monotonic()
+        with open(host_out, "w") as f:
+            proc = subprocess.run(
+                [sys.executable, "-m", "lastz_tpu.cli", *argv], stdout=f,
+                stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        host_s = time.monotonic() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"lastz_tpu host run exited "
+                               f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(port_out, "rb") as f:
+            a = f.read()
+        with open(host_out, "rb") as f:
+            b = f.read()
+        say("main", run="lastz_tpu.cli host", wall_s=host_s,
+            lav_bytes=[len(a), len(b)], lav_equal=a == b, card=card)
+        if a != b:
+            raise AssertionError("port LAV differs from lastz_tpu host LAV")
+    return launches
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = phase_toolchain()
+    rows = phase_kernels(card)
+    launches = phase_main(card)
+    rows = [{**r, "launches": launches[r["name"]]} for r in rows]
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

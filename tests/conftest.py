@@ -31,3 +31,9 @@ def test_data_dir():
     if not os.path.isdir(TEST_DATA):
         pytest.skip("reference test_data not available")
     return TEST_DATA
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (CUDA kernels have no CPU "
+        "mode); skips where there is none")

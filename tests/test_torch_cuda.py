@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions on a
+card.  This file imports no JAX, so it also runs where JAX is absent:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Each test skips where torch finds no card (a CUDA kernel has no CPU
+mode).  The tolerance is exact equality: integer DP state, link bytes
+and x-drop results."""
+
+import numpy as np
+import pytest
+import torch
+
+from lastz_tpu.core.scoring import new_dna_score_set
+from lastz_tpu_torch.device import carry_state
+from lastz_tpu_torch.ops import ydrop_exact as tx
+from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
+from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega, ydrop_chunk
+
+from test_hitgen import _related_pair
+
+
+def _mega_inputs(seed=21, n=1500, Bh=6, W=256):
+    """One small mega launch: Bh anchors near the diagonal of a related
+    pair, both directions, 64-row chunks, 4 retained blocks (so some
+    lanes finish inside the blocks and some do not)."""
+    rng = np.random.default_rng(seed)
+    sc = new_dna_score_set()
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    s1 = alpha[rng.integers(0, 4, n)]
+    s2 = s1.copy()
+    mut = rng.random(n) < 0.12
+    s2[mut] = alpha[rng.integers(0, 4, mut.sum())]
+    code_map, subsmall = tx.make_compact_alphabet([s1, s2], sc.sub)
+    a1 = rng.integers(50, n - 50, Bh)
+    a2 = np.clip(a1 + rng.integers(-3, 4, Bh), 0, n - 1)
+    A1 = np.concatenate([a1, a1]).astype(np.int32)
+    A2 = np.concatenate([a2, a2]).astype(np.int32)
+    REV = np.arange(2 * Bh) >= Bh
+    lo = np.zeros(2 * Bh, np.int32)
+    hi = np.full(2 * Bh, n, np.int32)
+    M = np.where(REV, A1 + 1, n - (A1 + 1)).astype(np.int32)
+    N = np.where(REV, A2 + 1, n - (A2 + 1)).astype(np.int32)
+    ge = int(sc.gap_extend)
+    goe = int(sc.gap_open + sc.gap_extend)
+    st_np, _ = tx.fresh_state_np(N.astype(np.int64), ge, goe, 3000, W,
+                                 2 * Bh)
+    seqs = (code_map[s1].astype(np.int8), code_map[s2].astype(np.int8))
+    lane = (A1, A2, lo, hi, lo, hi, REV, M, N)
+    kw = dict(gap_e=ge, gap_oe=goe, y_drop=3000, lanes=W, rows=64,
+              max_blocks=4, alpha=16, trim_to_peak=True,
+              tb_cap=80 * 1024 * 1024)
+    return seqs, lane, st_np, subsmall, kw
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _mega(dev, seqs, lane, state, prev, subsmall, kw, with_tb=True):
+    def up(a):
+        if torch.is_tensor(a):
+            return a.to(dev)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return tx.ydrop_mega(*map(up, seqs + lane),
+                         {k: up(v) for k, v in state.items()}, up(prev),
+                         up(subsmall), with_tb=with_tb, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_ydrop_matches_plain():
+    """K1 through the mega loop, with and without link bytes, and the
+    traceback kernel, each against its plain version."""
+    dev = _card()
+    seqs, lane, st_np, subsmall, kw = _mega_inputs()
+    prev0 = np.zeros(lane[0].shape[0], np.int32)
+    n0 = ydrop_chunk.launches
+    got = _mega(dev, seqs, lane, st_np, prev0, subsmall, kw)
+    assert ydrop_chunk.launches > n0
+    want = _mega(torch.device("cpu"), seqs, lane, st_np, prev0, subsmall,
+                 kw)
+    for k in tx.STATE_KEYS:
+        assert torch.equal(got[0][k].cpu(), want[0][k]), k
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a.cpu(), b)
+    st, _, packed, tb, lo, hi, c0 = got
+    done = st["done"]
+    assert bool(done.any()) and not bool(done.all())
+    cap = kw["max_blocks"] * kw["rows"] + kw["lanes"] + 512
+    args = (tb, lo, hi, c0, packed[12], st["end1"], st["end2"], done, cap)
+    n0 = traceback_mega.launches
+    tb_got = traceback_mega(*args)
+    assert traceback_mega.launches == n0 + 1
+    tb_want = traceback_mega(*(a.cpu() if torch.is_tensor(a) else a
+                               for a in args))
+    for a, b in zip(tb_got, tb_want):
+        assert torch.equal(a.cpu(), b)
+    # the score-only continuation of the unfinished lanes
+    sel = torch.nonzero(~done)[:, 0].cpu()
+    c_lane = tuple(a[sel.numpy()] for a in lane)
+    c_state = {k: v[sel.to(v.device)] for k, v in st.items()}
+    c_prev = got[1][sel.to(dev)]
+    got2 = _mega(dev, seqs, c_lane, c_state, c_prev, subsmall, kw,
+                 with_tb=False)
+    want2 = _mega(torch.device("cpu"), seqs, c_lane,
+                  {k: v.cpu() for k, v in c_state.items()}, c_prev.cpu(),
+                  subsmall, kw, with_tb=False)
+    for a, b in zip(got2[2:], want2[2:]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_xdrop_matches_plain():
+    """K2 against its plain version, both directions."""
+    dev = _card()
+    s1, s2 = _related_pair(20000, seed=3)
+    state = carry_state(s1, s2, new_dna_score_set().sub, dev)
+    rng = np.random.default_rng(1)
+    H = 50000
+    pos1 = rng.integers(19, len(s1), H)
+    pos2 = np.where(rng.random(H) < 0.5, pos1, rng.integers(19, len(s2), H))
+    diag = pos1 - pos2
+    n_l = pos1 - np.maximum(diag, 0)
+    n_r = np.maximum(np.minimum(len(s1), len(s2) + diag) - pos1, 0)
+    t = [torch.from_numpy(a).to(dev) for a in (pos1, pos2, n_l, n_r)]
+    args = (state["seq1p"], state["seq2p"], state["subsmall_t"].reshape(-1),
+            16)
+    n0 = xdrop_scan.launches
+    got = xdrop_scan(*args, *t, 910)
+    assert xdrop_scan.launches == n0 + 1
+    want = xdrop_scan(*(a.cpu() if torch.is_tensor(a) else a for a in args),
+                      *(a.cpu() for a in t), 910)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a.cpu(), b)
