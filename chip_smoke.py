@@ -6,24 +6,37 @@
 Phases, one line each (any failure exits nonzero):
   1 toolchain  card name and power limit, torch / CUDA / nvcc versions,
                and the build of csrc/*.cu into lastz_tpu_torch/build/
+               (one nvcc process per source, all at once)
   2 kernels    each kernel against its plain PyTorch version on the
-               card, exactly, at the main path's shapes: K1 (y-drop
-               chunk, 128 lanes x 1536 columns x 1024 rows, the five
-               cases of tests/test_ydrop_pallas_exact.py, with and
-               without link bytes), K2 (x-drop
-               scan, 2M hits) and the traceback walk; times each next
-               to its plain version with CUDA events
+               card, exactly, at its path's shapes: K1 (y-drop chunk,
+               128 lanes x 1536 columns x 1024 rows, the five cases of
+               tests/test_ydrop_pallas_exact.py, with and without link
+               bytes), K2 (x-drop scan, 2M hits), the traceback walk,
+               and K3 and K3b (band 512 x 1024 rows, 4,096 anchors of
+               the 4 Mbp pair below, forward and reverse); times each
+               next to its plain version with CUDA events, and works
+               out its bound from the inputs it was timed on
   3 main       the default run `lastz_tpu_torch.cli t.fa q.fa --stats`
                on a 4 Mbp synthetic pair (bench.py's ensure_pair
                recipe, seed 42: 600 conserved 2-6 kbp segments at
                72-85% identity), with every launch counter reset
-               before it; requires launches of all three kernels, a
-               nonzero device gapped share and the device seed search,
-               then runs lastz_tpu's host path on the same pair and
-               requires byte-equal LAV
+               before it; requires launches of K1, K2 and the
+               traceback, a nonzero device gapped share and the device
+               seed search, then runs lastz_tpu's host path (a child
+               process, the reference) on the same pair and requires
+               byte-equal LAV; then runs the port's CLI once more from
+               a copy of lastz_tpu_torch alone (a child process with
+               jax and lastz_tpu blocked) and requires the same LAV
+  4 extend     ops/ydrop_pallas.py's own path, with every counter
+               reset before it: prepare_anchor_batch, then
+               ydrop_extend_batch (K3) and ydrop_band_batch (K3b) on
+               the same 4,096 anchors in both orientations; requires
+               launches of both and results equal to phase 2's plain
+               versions
 
 The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.  Nothing of JAX is imported.
+{"ok": true, "device": {...}}.  Nothing of JAX or of lastz_tpu is
+imported.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -47,6 +61,9 @@ K1_SHAPE = dict(B=128, rows=1024, W=1536)
 K2_HITS = 1 << 21
 # one production mega launch: 64 anchors x 2 directions
 TB_SHAPE = dict(Bh=64, W=1536, rows=1024, blocks=8, n=6000)
+# K3/K3b: ydrop_extend_batch's default geometry, anchors on the pair's
+# conserved segments drawn from their own seed
+K3_SHAPE = dict(band=512, max_rows=1024, anchors=4096, seed=3)
 # (name, y_drop, divergence, trim_to_peak, tb_cap, chunks, seed): the
 # five cases of tests/test_ydrop_pallas_exact.py:96-116
 K1_CASES = [
@@ -56,6 +73,23 @@ K1_CASES = [
     ("truncation", 3000, 0.10, True, 600, 1, 4),
     ("high_divergence", 900, 0.45, True, 1 << 20, 1, 5),
 ]
+
+
+# The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes per
+# second, and int32 operations per second outside the tensor cores --
+# 64 INT32 lanes on each of the 132 SMs at the 1980 MHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations a kernel needs per DP cell of the y-drop band these
+# inputs need (per scanned cell for K2, per step for the walk):
+#   K3/K3b: score lookup, diagonal add, D (2 sub, max), I (2 sub, max),
+#           C (2 max), prune (sub, compare, select), best (compare,
+#           2 selects) = 16
+#   K1: the same 16 plus 4 to compose the link byte = 20
+#   K2: score lookup, add, running max, drop compare, stop test = 5
+#   traceback: byte load, 3 mask tests, 2 coordinate steps = 6
+OPS_PER_CELL = {"ydrop_chunk": 20, "xdrop_scan": 5, "ydrop_traceback": 6,
+                "ydrop_wavefront": 16, "ydrop_band": 16}
 
 
 def say(phase, **kw):
@@ -83,6 +117,18 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(name, n_bytes, cells):
+    """(bound_ms, bound_by): the larger of the bytes over the memory
+    rate and the operations over the int32 rate."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * cells * OPS_PER_CELL[name] / INT32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_abs_diff(a, b) -> int:
@@ -128,7 +174,7 @@ def phase_toolchain():
 
 
 def _k1_inputs(rng, B, rows, W, chunks, div):
-    from lastz_tpu.core.scoring import new_dna_score_set
+    from lastz_tpu_torch.core.scoring import new_dna_score_set
     from lastz_tpu_torch.ops.ydrop_exact import make_compact_alphabet
     n = rows * (chunks + 1) + W + 64
     sc = new_dna_score_set()
@@ -148,8 +194,9 @@ def _k1_inputs(rng, B, rows, W, chunks, div):
 def check_k1(dev):
     """K1 against ydrop_chunk_plain on the five cases, chunk by chunk,
     windows derived from the (asserted equal) state as the JAX test
-    does.  Returns (max_abs_err, kernel ms, plain ms) of the basic
-    case's first chunk."""
+    does.  Returns (max_abs_err, kernel ms, plain ms, bytes, cells) of
+    the basic case's first chunk; its cells are the y-drop band's, the
+    traceback bytes (tbp) the chunk used."""
     import torch
     from lastz_tpu_torch.ops.ydrop_cuda import ydrop_chunk
     from lastz_tpu_torch.ops.ydrop_exact import (fresh_state_np,
@@ -220,7 +267,10 @@ def check_k1(dev):
             if times is None:
                 ms = cuda_ms(lambda: ydrop_chunk(*args, state, sub_t, **kw),
                              5)
-                times = (ms, plain_ms)
+                cells = int((st_k["tbp"].long() - state["tbp"].long()).sum())
+                n_bytes = (nbytes(*args, sub_t, *state.values())
+                           + nbytes(*st_k.values(), tb_k))
+                times = (ms, plain_ms, n_bytes, cells)
             err = max(err, e)
             state = st_k
             n_chunks += 1
@@ -229,7 +279,7 @@ def check_k1(dev):
         say("kernels", kernel="ydrop_chunk", case=name, chunks=n_chunks,
             rows_used_max=int(state["rows_used"].max()),
             done=int(state["done"].sum()), equal=True)
-    return err, times[0], times[1]
+    return (err, *times)
 
 
 def _related_codes(rng, n, ident):
@@ -246,7 +296,7 @@ def check_k2(dev):
     the conserved diagonal (long scans inside its segments), half
     random (short)."""
     import torch
-    from lastz_tpu.core.scoring import new_dna_score_set
+    from lastz_tpu_torch.core.scoring import new_dna_score_set
     from lastz_tpu_torch.device import carry_state
     from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
     from lastz_tpu_torch.ops.hitgen import xdrop_scan_plain
@@ -289,7 +339,10 @@ def check_k2(dev):
     ms = cuda_ms(lambda: xdrop_scan(*args), 5)
     say("kernels", kernel="xdrop_scan", hits=H,
         mean_consumed_right=float(got[1][0].float().mean()), equal=True)
-    return err, ms, plain_ms
+    cells = int(got[0][0].long().sum() + got[1][0].long().sum())
+    n_bytes = nbytes(state["seq1p"], state["seq2p"], subflat, *t,
+                     *got[0], *got[1])
+    return err, ms, plain_ms, n_bytes, cells
 
 
 def check_traceback(dev):
@@ -297,7 +350,7 @@ def check_traceback(dev):
     production mega launch: 64 anchors on a related 6 kbp pair, both
     directions, 8 blocks of 1024 rows over a 1536-column window."""
     import torch
-    from lastz_tpu.core.scoring import new_dna_score_set
+    from lastz_tpu_torch.core.scoring import new_dna_score_set
     from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega
     from lastz_tpu_torch.ops.ydrop_exact import (fresh_state_np,
                                                  make_compact_alphabet,
@@ -346,27 +399,124 @@ def check_traceback(dev):
     ms = cuda_ms(lambda: traceback_mega(*args), 3)
     say("kernels", kernel="ydrop_traceback", lanes=2 * Bh,
         walked=int(want.sum()), max_steps=int(got[1].max()), equal=True)
-    return err, ms, plain_ms
+    # the walk reads one link byte and writes one op byte per step; the
+    # rest of the link blocks is never read
+    steps = int(got[1][want].long().sum())
+    n_bytes = 2 * steps + nbytes(*args[1:8], got[0], *got[1:])
+    return err, ms, plain_ms, n_bytes, steps
 
 
-def phase_kernels(card):
+def anchor_batches(pair):
+    """K3_SHAPE's anchors, points on the pair's conserved segments, as
+    prepare_anchor_batch gives them in both orientations: {reversed_:
+    (codes1, codes2, sub4, params)} in numpy."""
+    from lastz_tpu_torch.core.encoding import UPPER_NUC_TO_BITS
+    from lastz_tpu_torch.core.scoring import new_dna_score_set
+    from lastz_tpu_torch.ops.ydrop_pallas import prepare_anchor_batch
+    t, q, segs = pair
+    rng = np.random.default_rng(K3_SHAPE["seed"])
+    pick = rng.integers(0, len(segs), K3_SHAPE["anchors"])
+    frac = rng.uniform(0.1, 0.9, K3_SHAPE["anchors"])
+    anchors = [(p + int(f * lt), o + int(f * lq))
+               for (p, o, lt, lq), f in zip((segs[i] for i in pick), frac)]
+    sc = new_dna_score_set()
+    v1 = UPPER_NUC_TO_BITS[t]
+    v2 = UPPER_NUC_TO_BITS[q]
+    sub4 = sc.dna4.astype(np.int32)
+    ge, goe = int(sc.gap_extend), int(sc.gap_open + sc.gap_extend)
+    y_drop = int(sc.gap_open) + 300 * ge  # LASTZ's default y-drop
+    out = {}
+    for rev in (False, True):
+        c1, c2, params = prepare_anchor_batch(
+            v1, v2, anchors, ge, goe, y_drop, band=K3_SHAPE["band"],
+            max_rows=K3_SHAPE["max_rows"], reversed_=rev)
+        out[rev] = (c1, c2, sub4, params)
+    return out
+
+
+def check_k3(dev, batches, name):
+    """K3 (name "ydrop_wavefront") or K3b ("ydrop_band") against its
+    plain version on both orientations; returns (max_abs_err, kernel
+    ms, plain ms, bytes, cells) of the forward batch, and each
+    orientation's plain result.  Its cells are the band the y-drop
+    needs, as the plain version counts them: per DP row, the columns
+    from its first to its last cell that survives the prune."""
+    import torch
+    from lastz_tpu_torch.ops import ydrop_pallas as tp
+    fn, plain = {"ydrop_wavefront": (tp.ydrop_extend_batch,
+                                     tp.ydrop_wavefront_plain),
+                 "ydrop_band": (tp.ydrop_band_batch,
+                                tp.ydrop_band_plain)}[name]
+    geo = dict(band=K3_SHAPE["band"], max_rows=K3_SHAPE["max_rows"])
+    err = 0
+    refs = {}
+    for rev in (False, True):
+        args = [torch.from_numpy(a).to(dev) for a in batches[rev]]
+        got = fn(*args, **geo)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ref = plain(*args, **geo)
+        torch.cuda.synchronize()
+        p_ms = 1000 * (time.monotonic() - t0)
+        e = max_abs_diff(got, ref)
+        if e:
+            raise AssertionError(f"{name} reversed={rev} differs by {e}")
+        err = max(err, e)
+        refs[rev] = ref
+        say("kernels", kernel=name, reversed=rev, anchors=len(got),
+            best_mean=float(got[:, 0].float().mean()),
+            end_row_max=int(got[:, 1].max()), equal=True)
+        if not rev:
+            ms = cuda_ms(lambda: fn(*args, **geo), 3)
+            plain_ms = p_ms
+            again, span = plain(*args, **geo, live_span=True)
+            if max_abs_diff(again, ref):
+                raise AssertionError(f"{name}: live_span changed the result")
+            cells = int(span.sum())
+            grid = int(((args[0] >= 0).sum(1).long()
+                        * (args[1] >= 0).sum(1).long()).sum())
+            say("kernels", kernel=name, live_cells=cells, grid_cells=grid)
+            n_bytes = nbytes(*args, got)
+    return err, ms, plain_ms, n_bytes, cells, refs
+
+
+def phase_kernels(card, pair):
+    """Returns the kernel rows and the plain K3/K3b results."""
     import torch
     dev = torch.device("cuda")
+    batches = anchor_batches(pair)
+    refs = {}
     rows = []
-    for name, fn, src, repl in (
-            ("ydrop_chunk", check_k1, "lastz_tpu_torch/csrc/ydrop_chunk.cu",
+    for name, run, src, repl in (
+            ("ydrop_chunk", lambda: check_k1(dev),
+             "lastz_tpu_torch/csrc/ydrop_chunk.cu",
              "lastz_tpu/ops/ydrop_pallas_exact.py:79"),
-            ("xdrop_scan", check_k2, "lastz_tpu_torch/csrc/xdrop_scan.cu",
+            ("xdrop_scan", lambda: check_k2(dev),
+             "lastz_tpu_torch/csrc/xdrop_scan.cu",
              "lastz_tpu/ops/xdrop_pallas.py:91"),
-            ("ydrop_traceback", check_traceback,
+            ("ydrop_traceback", lambda: check_traceback(dev),
              "lastz_tpu_torch/csrc/ydrop_traceback.cu",
-             "lastz_tpu/ops/ydrop_exact.py:675")):
-        err, ms, plain_ms = fn(dev)
+             "lastz_tpu/ops/ydrop_exact.py:675"),
+            ("ydrop_wavefront",
+             lambda: check_k3(dev, batches, "ydrop_wavefront"),
+             "lastz_tpu_torch/csrc/ydrop_wavefront.cu",
+             "lastz_tpu/ops/ydrop_pallas.py:156"),
+            ("ydrop_band", lambda: check_k3(dev, batches, "ydrop_band"),
+             "lastz_tpu_torch/csrc/ydrop_wavefront.cu",
+             "lastz_tpu/ops/ydrop_pallas.py:38")):
+        err, ms, plain_ms, n_bytes, cells, *ref = run()
+        if ref:
+            refs[name] = ref[0]
+        bound_ms, bound_by = bound(name, n_bytes, cells)
+        # no single PyTorch call computes any of these functions
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None))
         say("kernels", kernel=name, tolerance=0, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, card=card)
-    return rows
+            plain_ms=plain_ms, bytes=n_bytes, cells=cells,
+            bound_ms=bound_ms, bound_by=bound_by, card=card)
+    return rows, refs
 
 
 # ---------------------------------------------------------------------------
@@ -381,9 +531,11 @@ def _write_fasta(path, name, s):
             f.write(bytes(s[i:i + 80]).decode() + "\n")
 
 
-def write_pair(tdir):
+def make_pair():
     """bench.py's ensure_pair recipe (seed 42): conserved 2-6 kbp
-    segments at 72-85% identity scattered through random background."""
+    segments at 72-85% identity scattered through random background.
+    Returns (target, query, segments) with one (target start, query
+    start, target length, query length) per conserved segment."""
     rng = np.random.default_rng(42)
     alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
     n = PAIR_BP
@@ -408,6 +560,8 @@ def write_pair(tdir):
         return np.array(out, dtype=np.uint8)
 
     q_parts = []
+    segs = []
+    q_len = 0
     for _ in range(150 * (n // 1_000_000)):
         L = int(rng.integers(2000, 6000))
         p = int(rng.integers(0, n - L))
@@ -415,7 +569,13 @@ def write_pair(tdir):
         q_parts.append(alpha[rng.integers(0, 4, f)])
         ident = 0.72 + 0.13 * rng.random()
         q_parts.append(mutate(t[p:p + L], ident))
-    q = np.concatenate(q_parts)
+        segs.append((p, q_len + f, L, len(q_parts[-1])))
+        q_len += f + len(q_parts[-1])
+    return t, np.concatenate(q_parts), segs
+
+
+def write_pair(tdir, pair):
+    t, q, _ = pair
     tp = os.path.join(tdir, "t.fa")
     qp = os.path.join(tdir, "q.fa")
     _write_fasta(tp, "t", t)
@@ -423,24 +583,80 @@ def write_pair(tdir):
     return tp, qp, len(t), len(q)
 
 
-def phase_main(card):
+def counters():
+    """Every kernel wrapper of the port, by kernel name."""
+    from lastz_tpu_torch.ops import xdrop_cuda, ydrop_cuda, ydrop_pallas
+    return {"ydrop_chunk": ydrop_cuda.ydrop_chunk,
+            "xdrop_scan": xdrop_cuda.xdrop_scan,
+            "ydrop_traceback": ydrop_cuda.traceback_mega,
+            "ydrop_wavefront": ydrop_pallas.ydrop_extend_batch,
+            "ydrop_band": ydrop_pallas.ydrop_band_batch}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def require_launched(launches, path):
+    """Fails when a kernel of the path just driven was not launched."""
+    for k in path:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on its path")
+
+
+# the port's CLI with neither JAX nor lastz_tpu importable
+_ALONE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["lastz_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+from lastz_tpu_torch import cli
+rc = cli.main(sys.argv[2:])
+assert not any(m == "lastz_tpu" or m.startswith("lastz_tpu.")
+               for m in sys.modules if sys.modules[m] is not None)
+sys.exit(rc)
+"""
+
+
+def run_alone(tdir, argv, out_path):
+    """The port's CLI from a copy of lastz_tpu_torch with nothing else
+    of the repo beside it; returns its wall seconds."""
+    alone = os.path.join(tdir, "alone")
+    shutil.copytree(os.path.join(ROOT, "lastz_tpu_torch"),
+                    os.path.join(alone, "lastz_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    env = {k: v for k, v in os.environ.items()
+           if k != "PYTHONPATH" and not k.startswith("LASTZ_TPU_")}
+    env["LASTZ_TORCH_DEVICE"] = "cuda"
+    t0 = time.monotonic()
+    with open(out_path, "w") as f:
+        proc = subprocess.run([sys.executable, "-c", _ALONE, alone, *argv],
+                              stdout=f, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=alone)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the port alone exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    return time.monotonic() - t0
+
+
+def phase_main(card, pair):
     """Returns each kernel's launch count in the port's main-path run."""
     import torch
-    import lastz_tpu.stats as lstats
+    import lastz_tpu_torch.stats as tstats
     from lastz_tpu_torch import cli
-    from lastz_tpu_torch.ops import xdrop_cuda, ydrop_cuda
     from lastz_tpu_torch.search import device_hits
-    counters = {"ydrop_chunk": ydrop_cuda.ydrop_chunk,
-                "xdrop_scan": xdrop_cuda.xdrop_scan,
-                "ydrop_traceback": ydrop_cuda.traceback_mega}
     with tempfile.TemporaryDirectory() as tdir:
         t0 = time.monotonic()
-        tp, qp, lt, lq = write_pair(tdir)
+        tp, qp, lt, lq = write_pair(tdir, pair)
         say("main", pair_bp=[lt, lq], write_s=round(time.monotonic() - t0, 3))
         argv = [tp, qp, "--stats"]
         os.environ["LASTZ_TORCH_DEVICE"] = "cuda"
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counts()
         device_hits.device_search.runs = 0
         port_out = os.path.join(tdir, "port.lav")
         err = io.StringIO()
@@ -450,8 +666,8 @@ def phase_main(card):
             rc = cli.main(argv)
         torch.cuda.synchronize()
         port_s = time.monotonic() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
-        st = lstats.current
+        launches = read_counts()
+        st = tstats.current
         if rc != 0:
             raise RuntimeError(f"port CLI exited {rc}: "
                                f"{err.getvalue()[-2000:]}")
@@ -463,9 +679,8 @@ def phase_main(card):
             alignments=st.alignments,
             timers={k: round(v, 3) for k, v in st.timers.items()},
             extra=st.extra, card=card)
-        for k, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"{k} was not launched on the main path")
+        require_launched(launches, ("ydrop_chunk", "xdrop_scan",
+                                    "ydrop_traceback"))
         if st.gapped_device <= 0:
             raise AssertionError("no anchor was extended on the device")
         if seed_runs <= 0:
@@ -491,6 +706,53 @@ def phase_main(card):
             lav_bytes=[len(a), len(b)], lav_equal=a == b, card=card)
         if a != b:
             raise AssertionError("port LAV differs from lastz_tpu host LAV")
+        alone_out = os.path.join(tdir, "alone.lav")
+        alone_s = run_alone(tdir, argv, alone_out)
+        with open(alone_out, "rb") as f:
+            c = f.read()
+        say("main", run="lastz_tpu_torch.cli alone", wall_s=alone_s,
+            lav_bytes=len(c), lav_equal=a == c, card=card)
+        if a != c:
+            raise AssertionError("the port alone wrote other LAV")
+    return launches
+
+
+def phase_extend(card, pair, refs):
+    """ops/ydrop_pallas.py's path through its entry points, both
+    orientations; returns each kernel's launch count in it."""
+    import torch
+    from lastz_tpu_torch.ops import ydrop_pallas as tp
+    geo = dict(band=K3_SHAPE["band"], max_rows=K3_SHAPE["max_rows"])
+    reset_counts()
+    t0 = time.monotonic()
+    batches = anchor_batches(pair)
+    outs = {}
+    for rev, batch in batches.items():
+        args = [torch.from_numpy(a).cuda() for a in batch]
+        outs[rev] = (tp.ydrop_extend_batch(*args, **geo),
+                     tp.ydrop_band_batch(*args, **geo))
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = read_counts()
+    require_launched(launches, ("ydrop_wavefront", "ydrop_band"))
+    for rev, (k3, k3b) in outs.items():
+        for name, got in (("ydrop_wavefront", k3), ("ydrop_band", k3b)):
+            if max_abs_diff(got, refs[name][rev]):
+                raise AssertionError(f"{name} reversed={rev}: the path's "
+                                     f"result differs from the plain one")
+            ends = got[:, 1:3]
+            if bool((ends < 0).any()) or int(got[:, 1].max()) >= geo[
+                    "max_rows"] or int(got[:, 2].max()) > geo["band"]:
+                raise AssertionError(f"{name}: end cell off the grid")
+            if float((got[:, 0] > 0).float().mean()) < 0.9:
+                raise AssertionError(f"{name}: most anchors score 0")
+    say("extend", anchors=K3_SHAPE["anchors"], orientations=2,
+        wall_s=wall_s, launches=launches,
+        best_mean={name: float(torch.cat([o[i][:, 0] for o in outs.values()])
+                               .float().mean())
+                   for i, name in enumerate(("ydrop_wavefront",
+                                             "ydrop_band"))},
+        card=card)
     return launches
 
 
@@ -500,8 +762,14 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     card = phase_toolchain()
-    rows = phase_kernels(card)
-    launches = phase_main(card)
+    t0 = time.monotonic()
+    pair = make_pair()
+    say("pair", bp=[len(pair[0]), len(pair[1])], segments=len(pair[2]),
+        make_s=round(time.monotonic() - t0, 3))
+    rows, refs = phase_kernels(card, pair)
+    launches = phase_main(card, pair)
+    launches.update({k: v for k, v in phase_extend(card, pair, refs).items()
+                     if k in ("ydrop_wavefront", "ydrop_band")})
     rows = [{**r, "launches": launches[r["name"]]} for r in rows]
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,0 +1,2 @@
+from .segments import Segment, SegmentTable
+from .edit_script import EditScript, Alignment

@@ -26,8 +26,10 @@ import sys
 import numpy as np
 import torch
 
+from .. import stats as _stats
 from ..device import upload_codes
 from ..ops.ydrop_cuda import traceback_mega
+from .edit_script import EditScript
 from ..ops.ydrop_exact import (MAX_COMP_GAP_E, ST_TRUNCATED,
                                fresh_state_np, make_compact_alphabet,
                                ydrop_mega)
@@ -111,8 +113,6 @@ class DeviceYDrop:
         return idxs
 
     def _compute_for(self, ix):
-        from lastz_tpu import stats as _stats
-
         dev = self.device
         if self._v1c is None:
             self._v1c = upload_codes(self.v1, self.code_map, dev)
@@ -270,9 +270,7 @@ class DeviceYDrop:
 
     def compose(self, aligner, ix, anchor1, anchor2):
         """Replicates YDropAligner.ydrop_align from device results
-        (lastz_tpu/align/ydrop.py:746; gapped_extend.c:2459)."""
-        from lastz_tpu.align.edit_script import EditScript
-
+        (align/ydrop.py YDropAligner.ydrop_align; gapped_extend.c:2459)."""
         res = self.result_for(ix)
         rev, fwd = res["rev"], res["fwd"]
 

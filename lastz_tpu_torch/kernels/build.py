@@ -1,17 +1,19 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-All of csrc/*.cu goes through one nvcc call into one shared library
-with a plain C interface:
+Each csrc/*.cu is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a
+plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<source>.cu
+    nvcc -shared -o <lib> <objects>
 
 The library lands in lastz_tpu_torch/build/, named by a hash of the
-sources and flags (the way lastz_tpu/native/__init__.py caches its g++
-build), so a changed source rebuilds and an unchanged one loads at
-once.  The build runs at first use, never at import: the CPU tests
-import every module on a machine without nvcc.  ptxas's register and
-shared-memory report goes to a .log file beside the library.
+sources and flags (the way native/__init__.py caches its g++ build),
+so a changed source rebuilds and an unchanged one loads at once.  The
+build runs at first use, never at import: the CPU tests import every
+module on a machine without nvcc.  ptxas's register and shared-memory
+report goes to a .log file beside the library.
 
 Each C entry point returns the launch's cudaGetLastError() code; the
 wrappers raise when it is not 0.
@@ -31,7 +33,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -44,6 +46,8 @@ _SIGNATURES = {
     "ydrop_traceback_launch": [_P] * 11 + [_I] * 5 + [_P],
     "xdrop_scan_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _LL,
                           _P, _P],
+    "ydrop_wavefront_launch": [_P] * 5 + [_I] * 3 + [_P],
+    "ydrop_band_launch": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 
@@ -77,15 +81,32 @@ def library_path() -> str:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.tmp{os.getpid()}"
-    cus = [p for p in sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o",
+             f"{tmp}.{os.path.basename(cu)}.o", cu]
+            for cu in sources() if cu.endswith(".cu")]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    link = [nvcc, "-shared", "-o", tmp, *(c[-2] for c in cmds)]
+    failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs)
+              if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        outs.append((proc.stdout, proc.stderr))
+        if proc.returncode != 0:
+            failed.append((link, proc.returncode, outs[-1]))
     with open(os.path.join(BUILD_DIR, f"liblastz_kernels_{tag}.log"),
               "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+        for c, (out, err) in zip(cmds + [link], outs):
+            f.write(" ".join(c) + "\n" + out + err)
+    for c in cmds:
+        if os.path.exists(c[-2]):
+            os.remove(c[-2])
+    if failed:
+        c, rc, (_, err) = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}) on {c[-1]}:\n{err[-4000:]}")
     os.replace(tmp, lib)
     return lib
 

@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lastz_tpu.core.scoring import NEG_INFINITY_SCORE
+from ..core.scoring import NEG_INFINITY_SCORE
 
 C_FROM_C = 0
 C_FROM_I = 1

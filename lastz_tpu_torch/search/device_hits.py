@@ -23,15 +23,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lastz_tpu.config import GFEX_NO_EXTEND, GFEX_XDROP
-from lastz_tpu.core import scoring as _scoring
-from lastz_tpu.core.scoring import entropy
-from lastz_tpu.search.batched import _probe_xors
-from lastz_tpu.search.batched import supported as _batched_supported
-
+from .. import stats as _stats
+from ..config import GFEX_NO_EXTEND, GFEX_XDROP
+from ..core import scoring as _scoring
+from ..core.scoring import entropy
 from ..device import carry_state
 from ..ops.hitgen import (HIT_BUDGET, OUT_CAP, expand_chunk, hit_launch,
                           pack_query_words, pair_counts)
+from .batched import _probe_xors
+from .batched import supported as _batched_supported
 
 _DEF_PCHUNK = 1 << 20
 
@@ -39,8 +39,9 @@ _DEF_PCHUNK = 1 << 20
 def supported(engine) -> bool:
     """The configurations this slice runs on the device: simple hit
     mode, plain seeds, x-drop or no extension, int32-safe scores and
-    lengths.  Recover and overweight (R) seeds go to lastz_tpu's host
-    engines, like twins and everything the batched gate declines."""
+    lengths.  Recover and overweight (R) seeds go to the host engines
+    (search/engine.py), like twins and everything the batched gate
+    declines."""
     if not _batched_supported(engine):
         return False
     if engine.hit_mode != "simple":
@@ -78,7 +79,6 @@ def device_search(engine, device, start: int = 0, end: int = 0):
         return 0
     hp = engine.hp
     no_extend = hp.gf_extend == GFEX_NO_EXTEND
-    from lastz_tpu import stats as _stats
     st = _stats.current
 
     with st.time("hitgen setup"):
@@ -154,7 +154,6 @@ def device_search(engine, device, start: int = 0, end: int = 0):
         """Host replay of the per-candidate reporting sequence
         (search/batched.py:322-378; the engine is the contract)."""
         nonlocal bases_hit, trip_pos
-        engine._dev_reported = True
         (pos1a, pos2a, grpa, lsc, lst, rsc, rst, de_b,
          bind) = [out_np[r, :n] for r in range(9)]
         for i in range(n):

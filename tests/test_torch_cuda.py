@@ -4,16 +4,17 @@ card.  This file imports no JAX, so it also runs where JAX is absent:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Each test skips where torch finds no card (a CUDA kernel has no CPU
-mode).  The tolerance is exact equality: integer DP state, link bytes
-and x-drop results."""
+mode).  The tolerance is exact equality: integer DP state, link bytes,
+x-drop results and the (best, row, column) of K3 and K3b."""
 
 import numpy as np
 import pytest
 import torch
 
-from lastz_tpu.core.scoring import new_dna_score_set
+from lastz_tpu_torch.core.scoring import new_dna_score_set
 from lastz_tpu_torch.device import carry_state
 from lastz_tpu_torch.ops import ydrop_exact as tx
+from lastz_tpu_torch.ops import ydrop_pallas as tp
 from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
 from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega, ydrop_chunk
 
@@ -135,3 +136,37 @@ def test_cuda_xdrop_matches_plain():
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band,rows", [(64, 128), (512, 1024)])
+@pytest.mark.parametrize("y_drop", [300, 10 ** 7])
+def test_cuda_wavefront_and_band_match_plain(band, rows, y_drop):
+    """K3 and K3b against their plain versions on the same card
+    tensors: related code pairs with ragged ends, one anchor that
+    scores below 0 everywhere, a batch that is no multiple of 32."""
+    dev = _card()
+    rng = np.random.default_rng(band + y_drop % 7)
+    B = 70
+    sub4 = new_dna_score_set().dna4.astype(np.int32)
+    base = rng.integers(0, 4, (B, max(rows, band))).astype(np.int32)
+    C1 = base[:, :rows].copy()
+    C2 = base[:, :band].copy()
+    mut = rng.random(C2.shape) < 0.15
+    C2[mut] = (C2[mut] + 1) % 4
+    for i in range(B):
+        C1[i, int(rng.integers(rows // 2, rows + 1)):] = -1
+        C2[i, int(rng.integers(band // 2, band)):] = -1
+    C1[3] = np.where(C1[3] >= 0, 0, -1)
+    C2[3] = np.where(C2[3] >= 0, 3, -1)
+    P = np.tile(np.array([30, 430, y_drop, band - 1], np.int32), (B, 1))
+    args = [torch.from_numpy(a).to(dev) for a in (C1, C2, sub4, P)]
+    for fn, plain in ((tp.ydrop_extend_batch, tp.ydrop_wavefront_plain),
+                      (tp.ydrop_band_batch, tp.ydrop_band_plain)):
+        n0 = fn.launches
+        got = fn(*args, band=band, max_rows=rows)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        want = plain(*args, band=band, max_rows=rows)
+        assert torch.equal(got, want), fn.__name__
+        assert int(got[:, 0].max()) > 0

@@ -18,10 +18,16 @@ from lastz_tpu.core.seeds import parse_seed
 from lastz_tpu.index.postable import build_seed_position_table
 from lastz_tpu.ops import hitgen as jh
 from lastz_tpu.search.batched import _probe_xors
-from lastz_tpu.search.engine import HitProcessorParams
+import lastz_tpu_torch.stats as tstats
+from lastz_tpu_torch import config as tconfig
+from lastz_tpu_torch.core.seeds import parse_seed as t_parse_seed
+from lastz_tpu_torch.core.scoring import new_dna_score_set as t_score_set
 from lastz_tpu_torch.device import SEQ_PAD, carry_state
+from lastz_tpu_torch.index.postable import (
+    build_seed_position_table as t_build_table)
 from lastz_tpu_torch.ops import hitgen as th
 from lastz_tpu_torch.search import device_hits
+from lastz_tpu_torch.search.engine import HitProcessorParams as THitParams
 from lastz_tpu_torch.search.engine import SeedSearchEngine
 
 from test_hitgen import SCALAR, _collect, _related_pair
@@ -148,13 +154,20 @@ def test_hit_launch_matches_jax(pallas, monkeypatch):
     assert np.array_equal(np.asarray(de_j), de_t.numpy())
 
 
+def _port_engine_inputs(s1, seed_str, trans, gf_extend, thresh, x_drop):
+    """The port's seed, table and hit parameters (its own classes)."""
+    seed = t_parse_seed(seed_str, with_trans=trans)
+    pt = t_build_table(s1, 0, 0, UPPER_NUC_TO_BITS, seed, 1)
+    hp = THitParams(gf_extend=gf_extend, scoring=t_score_set(),
+                    x_drop=x_drop,
+                    hsp_threshold=tconfig.ScoreThreshold("S", thresh))
+    return seed, pt, hp
+
+
 def _port_hits(s1, s2, seed_str, trans, gf_extend, thresh, x_drop=910,
                **kw):
-    seed = parse_seed(seed_str, with_trans=trans)
-    pt = build_seed_position_table(s1, 0, 0, UPPER_NUC_TO_BITS, seed, 1)
-    hp = HitProcessorParams(gf_extend=gf_extend, scoring=new_dna_score_set(),
-                            x_drop=x_drop,
-                            hsp_threshold=ScoreThreshold("S", thresh))
+    seed, pt, hp = _port_engine_inputs(s1, seed_str, trans, gf_extend,
+                                       thresh, x_drop)
     hits = []
     eng = SeedSearchEngine(
         s1, pt, s2, seed, UPPER_NUC_TO_BITS, hp,
@@ -218,22 +231,18 @@ def test_device_search_split_and_band(monkeypatch):
 
 def test_unsupported_modes_go_to_the_host_engine():
     """Recover seeds are outside the slice: the port's engine hands
-    them to lastz_tpu's host engines and counts it."""
-    import lastz_tpu.stats as lstats
+    them to its own host engines and counts it."""
     s1, s2 = _related_pair(4000)
     args = (s1, s2, "1110100110010101111", 1, GFEX_XDROP, 3000)
     ref = _collect(*args, env=SCALAR, hit_mode="recover")
-    seed = parse_seed(args[2], with_trans=1)
-    pt = build_seed_position_table(s1, 0, 0, UPPER_NUC_TO_BITS, seed, 1)
-    hp = HitProcessorParams(gf_extend=GFEX_XDROP, scoring=new_dna_score_set(),
-                            x_drop=910,
-                            hsp_threshold=ScoreThreshold("S", 3000))
+    seed, pt, hp = _port_engine_inputs(s1, args[2], 1, tconfig.GFEX_XDROP,
+                                       3000, 910)
     hits = []
     eng = SeedSearchEngine(
         s1, pt, s2, seed, UPPER_NUC_TO_BITS, hp,
         lambda p1, p2, ln, s: hits.append((p1, p2, ln, s)) or ln,
         hit_mode="recover", device=CPU)
-    st = lstats.reset()
+    st = tstats.reset()
     runs = device_hits.device_search.runs
     eng.search(0, len(s2))
     assert device_hits.device_search.runs == runs

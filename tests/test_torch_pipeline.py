@@ -2,20 +2,17 @@
 CPU against lastz_tpu: byte-equal output to lastz_tpu's host path and
 to its device path (LASTZ_TPU_DEVICE=1) on the synthetic pairs of
 tests/test_device_path.py, with a nonzero device gapped share; the
-package imports and runs with JAX blocked; and asking for a card
-where there is none raises."""
+package imports and runs with JAX and lastz_tpu blocked; and asking
+for a card where there is none raises."""
 
 import io
-import os
-import subprocess
-import sys
 
 import pytest
 import torch
 
 import lastz_tpu.align.ydrop_device as jydd
-import lastz_tpu.stats as lstats
 import lastz_tpu_torch.align.ydrop_device as tydd
+import lastz_tpu_torch.stats as tstats
 from lastz_tpu.cli import parse_options
 from lastz_tpu.pipeline import Pipeline as HostPipeline
 from lastz_tpu_torch import cli
@@ -23,8 +20,7 @@ from lastz_tpu_torch.device import carry_state, get_device
 from lastz_tpu_torch.search import device_hits
 
 from test_device_path import _make_pair
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from test_torch_isolation import run_blocked
 
 
 def _host(args):
@@ -55,7 +51,7 @@ def test_cli_matches_lastz_tpu_host_and_device(tmp_path, monkeypatch,
     capsys.readouterr()
     assert cli.main(args) == 0
     port_out = capsys.readouterr().out
-    st = lstats.current
+    st = tstats.current
     assert device_hits.device_search.runs == runs + 2  # both strands
     assert st.gapped_device > 0, \
         f"no anchor ran on the device (host={st.gapped_host})"
@@ -68,34 +64,13 @@ def test_cli_matches_lastz_tpu_host_and_device(tmp_path, monkeypatch,
     assert port_out == jax_dev_out
 
 
-_NO_JAX = r"""
-import importlib, pkgutil, sys
-sys.modules["jax"] = None          # any import of jax now fails
-sys.path.insert(0, sys.argv[1])
-import lastz_tpu_torch
-for m in pkgutil.walk_packages(lastz_tpu_torch.__path__, "lastz_tpu_torch."):
-    importlib.import_module(m.name)
-from lastz_tpu_torch import cli
-from lastz_tpu_torch.align import ydrop_device
-ydrop_device.DEFAULT_WIDTH = 128
-ydrop_device.DEFAULT_ROWS = 256
-ydrop_device.DEFAULT_BATCH = 4
-rc = cli.main(sys.argv[2:])
-assert "jax.numpy" not in sys.modules
-sys.exit(rc)
-"""
-
-
 def test_runs_with_jax_blocked(tmp_path):
+    """The default LAV run with `jax` and `lastz_tpu` both blocked; the
+    other option sets are in test_torch_isolation.py."""
     t, q = _make_pair(tmp_path, n=1500, seed=5)
-    env = dict(os.environ, LASTZ_TORCH_DEVICE="cpu")
-    env.pop("LASTZ_TPU_DEVICE", None)
-    proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX, ROOT, t, q, "--ydrop=3000"],
-        capture_output=True, text=True, env=env, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout == _host([t, q, "--ydrop=3000"])
-    assert proc.stdout.startswith("#:lav")
+    out = run_blocked([t, q, "--ydrop=3000"])
+    assert out == _host([t, q, "--ydrop=3000"])
+    assert out.startswith("#:lav")
 
 
 def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
@@ -116,7 +91,7 @@ def test_carried_state_is_keyed_on_content():
     the other's codes; the port keys on content, so an array changed in
     place is uploaded again."""
     import numpy as np
-    from lastz_tpu.core.scoring import new_dna_score_set
+    from lastz_tpu_torch.core.scoring import new_dna_score_set
     sub = new_dna_score_set().sub
     rng = np.random.default_rng(0)
     seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 3000)].copy()
