@@ -10,21 +10,24 @@ Phases, one line each (any failure exits nonzero):
   2 kernels    each kernel against its plain PyTorch version on the
                card, exactly, at its path's shapes: K1 (y-drop chunk,
                128 lanes x 1536 columns x 1024 rows, the five cases of
-               tests/test_ydrop_pallas_exact.py, with and without link
-               bytes), K2 (x-drop scan, 2M hits), the traceback walk,
-               and K3 and K3b (band 512 x 1024 rows, 4,096 anchors of
-               the 4 Mbp pair below, forward and reverse); times each
-               next to its plain version with CUDA events, and works
-               out its bound from the inputs it was timed on
+               tests/test_ydrop_pallas_exact.py and a wide band at the
+               main path's y-drop, with and without link bytes), K2
+               (x-drop scan, 2M hits), the traceback walk, and K3 and
+               K3b (band 512 x 1024 rows, 4,096 anchors of the 4 Mbp
+               pair below, forward and reverse); times each wrapper
+               call (K1's with the zeroed allocation of its link
+               buffer) next to its plain version with CUDA events, and
+               works out its bound from the inputs it was timed on
   3 main       the default run `lastz_tpu_torch.cli t.fa q.fa --stats`
                on a 4 Mbp synthetic pair (bench.py's ensure_pair
                recipe, seed 42: 600 conserved 2-6 kbp segments at
                72-85% identity), with every launch counter reset
-               before it; requires launches of K1, K2 and the
-               traceback, a nonzero device gapped share and the device
-               seed search, then runs lastz_tpu's host path (a child
-               process, the reference) on the same pair and requires
-               byte-equal LAV; then runs the port's CLI once more from
+               before it and a CUDA event pair around each K1 launch
+               (the table's main_path_ms); requires launches of K1,
+               K2 and the traceback, a nonzero device gapped share and
+               the device seed search, then runs lastz_tpu's host path
+               (a child process, the reference) on the same pair and
+               requires byte-equal LAV; then runs the port's CLI once more from
                a copy of lastz_tpu_torch alone (a child process with
                jax and lastz_tpu blocked) and requires the same LAV
   4 extend     ops/ydrop_pallas.py's own path, with every counter
@@ -65,14 +68,19 @@ TB_SHAPE = dict(Bh=64, W=1536, rows=1024, blocks=8, n=6000)
 # conserved segments drawn from their own seed
 K3_SHAPE = dict(band=512, max_rows=1024, anchors=4096, seed=3)
 # (name, y_drop, divergence, trim_to_peak, tb_cap, chunks, seed): the
-# five cases of tests/test_ydrop_pallas_exact.py:96-116
+# five cases of tests/test_ydrop_pallas_exact.py:96-116, then the main
+# path's y-drop (9400) and traceback cap, whose bands grow past 160
+# columns, K1's narrow tile, over several of its 288-column tiles
 K1_CASES = [
     ("basic", 3000, 0.12, True, 1 << 20, 1, 1),
     ("multi_chunk_resume", 4000, 0.08, True, 1 << 20, 3, 2),
     ("boundary_noytrim", 3000, 0.10, False, 1 << 20, 1, 3),
     ("truncation", 3000, 0.10, True, 600, 1, 4),
     ("high_divergence", 900, 0.45, True, 1 << 20, 1, 5),
+    ("wide_band", 9400, 0.20, True, 80 << 20, 2, 6),
 ]
+# the K1 cases timed: the kernel table's row, then the wide band
+K1_TIMED = ("basic", "wide_band")
 
 
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes per
@@ -191,58 +199,89 @@ def _k1_inputs(rng, B, rows, W, chunks, div):
     return sc, subsmall, a_full, b_full
 
 
+def k1_setup(case, dev):
+    """One K1_CASES entry at K1_SHAPE: (kw, fresh state, score table,
+    windows), where windows(state, prev_off) gives the next chunk's
+    argument tensors and its b_off, derived from the state as the JAX
+    test does."""
+    import torch
+    from lastz_tpu_torch.ops.ydrop_exact import fresh_state_np
+    _, y_drop, div, trim, tb_cap, chunks, seed = case
+    B, rows, W = K1_SHAPE["B"], K1_SHAPE["rows"], K1_SHAPE["W"]
+    rng = np.random.default_rng(seed)
+    sc, subsmall, a_full, b_full = _k1_inputs(rng, B, rows, W, chunks, div)
+    ge = int(sc.gap_extend)
+    goe = int(sc.gap_open + sc.gap_extend)
+    Ms = np.full(B, a_full.shape[1] - 2, np.int32)
+    Ns = np.full(B, b_full.shape[1] - 2, np.int32)
+    kw = dict(gap_e=ge, gap_oe=goe, y_drop=y_drop, lanes=W, rows=rows,
+              alpha=16, trim_to_peak=trim, tb_cap=tb_cap)
+    st_np, _ = fresh_state_np(Ns.astype(np.int64), ge, goe, y_drop, W, B)
+    state = {k: torch.from_numpy(v).to(dev) for k, v in st_np.items()}
+
+    def windows(state, prev_off):
+        done = state["done"].cpu().numpy()
+        row_base = state["row"].cpu().numpy().astype(np.int64) - 1
+        b_off = np.where(done, prev_off,
+                         state["LY"].cpu().numpy().astype(np.int64))
+        shift = (b_off - prev_off).astype(np.int32)
+        a_win = np.zeros((B, rows), np.int32)
+        b_win = np.zeros((B, W), np.int32)
+        for b in range(B):
+            lo = int(row_base[b])
+            src = a_full[b, lo: lo + rows]
+            a_win[b, : len(src)] = src
+            lo2 = int(b_off[b])
+            if lo2 == 0:
+                src = b_full[b, : W - 1]
+                b_win[b, 1: 1 + len(src)] = src
+            else:
+                src = b_full[b, lo2 - 1: lo2 - 1 + W]
+                b_win[b, : len(src)] = src
+        args = tuple(torch.from_numpy(a).to(dev) for a in
+                     (a_win, b_win, b_off.astype(np.int32), shift, Ms, Ns))
+        return args, b_off
+
+    return kw, state, torch.from_numpy(subsmall).to(dev), windows
+
+
+def k1_ms(args, state, sub_t, kw):
+    """CUDA-event ms of one K1 chunk through its wrapper, the zeroed
+    allocation of its link buffer included."""
+    from lastz_tpu_torch.ops.ydrop_cuda import ydrop_chunk
+    return cuda_ms(lambda: ydrop_chunk(*args, state, sub_t, **kw), 5)
+
+
+def k1_bytes(args, sub_t, state, st_out):
+    """K1's bytes for its bound: each input read once, the state written
+    once, and one link byte per band cell (the chunk's traceback bytes,
+    tbp), the rest of the link buffer being the zeros it arrived with.
+    Returns (bytes, band cells)."""
+    cells = int((st_out["tbp"].long() - state["tbp"].long()).sum())
+    return (nbytes(*args, sub_t, *state.values()) + nbytes(*st_out.values())
+            + cells, cells)
+
+
 def check_k1(dev):
-    """K1 against ydrop_chunk_plain on the five cases, chunk by chunk,
-    windows derived from the (asserted equal) state as the JAX test
-    does.  Returns (max_abs_err, kernel ms, plain ms, bytes, cells) of
-    the basic case's first chunk; its cells are the y-drop band's, the
-    traceback bytes (tbp) the chunk used."""
+    """K1 against ydrop_chunk_plain on K1_CASES, chunk by chunk, windows
+    derived from the (asserted equal) state as the JAX test does; every
+    state column and link byte, with and without link bytes.  Returns
+    (max_abs_err, {case: (kernel ms, plain ms, bytes, cells)}) of the
+    first chunk of each K1_TIMED case; its cells are the y-drop band's,
+    the traceback bytes (tbp) the chunk used."""
     import torch
     from lastz_tpu_torch.ops.ydrop_cuda import ydrop_chunk
-    from lastz_tpu_torch.ops.ydrop_exact import (fresh_state_np,
-                                                 ydrop_chunk_plain)
-    B, rows, W = K1_SHAPE["B"], K1_SHAPE["rows"], K1_SHAPE["W"]
+    from lastz_tpu_torch.ops.ydrop_exact import ydrop_chunk_plain
+    B = K1_SHAPE["B"]
     err = 0
-    times = None
-    for name, y_drop, div, trim, tb_cap, chunks, seed in K1_CASES:
-        rng = np.random.default_rng(seed)
-        sc, subsmall, a_full, b_full = _k1_inputs(rng, B, rows, W, chunks,
-                                                  div)
-        ge = int(sc.gap_extend)
-        goe = int(sc.gap_open + sc.gap_extend)
-        Ms = np.full(B, a_full.shape[1] - 2, np.int32)
-        Ns = np.full(B, b_full.shape[1] - 2, np.int32)
-        kw = dict(gap_e=ge, gap_oe=goe, y_drop=y_drop, lanes=W, rows=rows,
-                  alpha=16, trim_to_peak=trim, tb_cap=tb_cap)
-        st_np, _ = fresh_state_np(Ns.astype(np.int64), ge, goe, y_drop, W,
-                                  B)
-        state = {k: torch.from_numpy(v).to(dev) for k, v in st_np.items()}
+    times = {}
+    for case in K1_CASES:
+        name, chunks = case[0], case[5]
+        kw, state, sub_t, windows = k1_setup(case, dev)
         prev_off = np.zeros(B, np.int64)
-        sub_t = torch.from_numpy(subsmall).to(dev)
         n_chunks = 0
         for chunk in range(chunks):
-            done = state["done"].cpu().numpy()
-            row_base = state["row"].cpu().numpy().astype(np.int64) - 1
-            b_off = np.where(done, prev_off,
-                             state["LY"].cpu().numpy().astype(np.int64))
-            shift = (b_off - prev_off).astype(np.int32)
-            prev_off = b_off.copy()
-            a_win = np.zeros((B, rows), np.int32)
-            b_win = np.zeros((B, W), np.int32)
-            for b in range(B):
-                lo = int(row_base[b])
-                src = a_full[b, lo: lo + rows]
-                a_win[b, : len(src)] = src
-                lo2 = int(b_off[b])
-                if lo2 == 0:
-                    src = b_full[b, : W - 1]
-                    b_win[b, 1: 1 + len(src)] = src
-                else:
-                    src = b_full[b, lo2 - 1: lo2 - 1 + W]
-                    b_win[b, : len(src)] = src
-            args = tuple(torch.from_numpy(a).to(dev) for a in
-                         (a_win, b_win, b_off.astype(np.int32), shift, Ms,
-                          Ns))
+            args, prev_off = windows(state, prev_off)
             st_k, tb_k = ydrop_chunk(*args, state, sub_t, **kw)
             # the score-only mode of the main path's continuation
             st_s, tb_s = ydrop_chunk(*args, state, sub_t, **kw,
@@ -264,13 +303,10 @@ def check_k1(dev):
             e = max_abs_diff(tb_k, tb_p)
             if e:
                 raise AssertionError(f"K1 {name} chunk {chunk}: tb differs")
-            if times is None:
-                ms = cuda_ms(lambda: ydrop_chunk(*args, state, sub_t, **kw),
-                             5)
-                cells = int((st_k["tbp"].long() - state["tbp"].long()).sum())
-                n_bytes = (nbytes(*args, sub_t, *state.values())
-                           + nbytes(*st_k.values(), tb_k))
-                times = (ms, plain_ms, n_bytes, cells)
+            if chunk == 0 and name in K1_TIMED:
+                ms = k1_ms(args, state, sub_t, kw)
+                n_bytes, cells = k1_bytes(args, sub_t, state, st_k)
+                times[name] = (ms, plain_ms, n_bytes, cells)
             err = max(err, e)
             state = st_k
             n_chunks += 1
@@ -279,7 +315,13 @@ def check_k1(dev):
         say("kernels", kernel="ydrop_chunk", case=name, chunks=n_chunks,
             rows_used_max=int(state["rows_used"].max()),
             done=int(state["done"].sum()), equal=True)
-    return (err, *times)
+    for name in K1_TIMED[1:]:
+        ms, plain_ms, n_bytes, cells = times[name]
+        bound_ms, bound_by = bound("ydrop_chunk", n_bytes, cells)
+        say("kernels", kernel="ydrop_chunk", case=name, ms=ms,
+            plain_ms=plain_ms, bytes=n_bytes, cells=cells,
+            bound_ms=bound_ms, bound_by=bound_by)
+    return (err, *times[K1_TIMED[0]])
 
 
 def _related_codes(rng, n, ident):
@@ -602,6 +644,44 @@ def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
 
 
+@contextlib.contextmanager
+def timed_launches(entry="ydrop_chunk_launch", fn=None):
+    """A CUDA event pair around every call of the kernel library's
+    `entry` inside the block, made through `fn` in its place when one is
+    given; yields the list of (start, end) events."""
+    import torch
+    from lastz_tpu_torch.kernels import build
+    lib = build.load()
+    own = getattr(lib, entry)
+    call = fn or own
+    events = []
+
+    def timed(*a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        rc = call(*a)
+        e1.record()
+        events.append((e0, e1))
+        return rc
+
+    setattr(lib, entry, timed)
+    try:
+        yield events
+    finally:
+        setattr(lib, entry, own)
+
+
+def launch_ms(events):
+    """Per-launch device ms of timed_launches' events (synchronizes)."""
+    import torch
+    torch.cuda.synchronize()
+    ms = np.array([a.elapsed_time(b) for a, b in events])
+    return dict(launches=len(ms), total_ms=float(ms.sum()),
+                mean_ms=float(ms.mean()), median_ms=float(np.median(ms)),
+                min_ms=float(ms.min()), max_ms=float(ms.max()))
+
+
 def require_launched(launches, path):
     """Fails when a kernel of the path just driven was not launched."""
     for k in path:
@@ -645,7 +725,8 @@ def run_alone(tdir, argv, out_path):
 
 
 def phase_main(card, pair):
-    """Returns each kernel's launch count in the port's main-path run."""
+    """Returns each kernel's launch count in the port's main-path run,
+    and K1's mean device ms per launch there."""
     import torch
     import lastz_tpu_torch.stats as tstats
     from lastz_tpu_torch import cli
@@ -662,7 +743,7 @@ def phase_main(card, pair):
         err = io.StringIO()
         t0 = time.monotonic()
         with open(port_out, "w") as f, contextlib.redirect_stdout(f), \
-                contextlib.redirect_stderr(err):
+                contextlib.redirect_stderr(err), timed_launches() as k1_ev:
             rc = cli.main(argv)
         torch.cuda.synchronize()
         port_s = time.monotonic() - t0
@@ -681,6 +762,11 @@ def phase_main(card, pair):
             extra=st.extra, card=card)
         require_launched(launches, ("ydrop_chunk", "xdrop_scan",
                                     "ydrop_traceback"))
+        k1 = launch_ms(k1_ev)
+        say("main", kernel="ydrop_chunk", device_ms_per_launch=k1,
+            card=card)
+        if k1["launches"] != launches["ydrop_chunk"]:
+            raise AssertionError("K1's timed calls and launches differ")
         if st.gapped_device <= 0:
             raise AssertionError("no anchor was extended on the device")
         if seed_runs <= 0:
@@ -714,7 +800,7 @@ def phase_main(card, pair):
             lav_bytes=len(c), lav_equal=a == c, card=card)
         if a != c:
             raise AssertionError("the port alone wrote other LAV")
-    return launches
+    return launches, {"ydrop_chunk": k1["mean_ms"]}
 
 
 def phase_extend(card, pair, refs):
@@ -767,10 +853,13 @@ def main():
     say("pair", bp=[len(pair[0]), len(pair[1])], segments=len(pair[2]),
         make_s=round(time.monotonic() - t0, 3))
     rows, refs = phase_kernels(card, pair)
-    launches = phase_main(card, pair)
+    launches, main_ms = phase_main(card, pair)
     launches.update({k: v for k, v in phase_extend(card, pair, refs).items()
                      if k in ("ydrop_wavefront", "ydrop_band")})
-    rows = [{**r, "launches": launches[r["name"]]} for r in rows]
+    # main_path_ms: the mean device ms of a launch on the main path (K1)
+    rows = [{**r, "launches": launches[r["name"]],
+             **({"main_path_ms": main_ms[r["name"]]}
+                if r["name"] in main_ms else {})} for r in rows]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@ from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega, ydrop_chunk
 from test_hitgen import _related_pair
 
 
-def _mega_inputs(seed=21, n=1500, Bh=6, W=256):
+def _mega_inputs(seed=21, n=1500, Bh=6, W=256, y_drop=3000, rows=64,
+                 max_blocks=4):
     """One small mega launch: Bh anchors near the diagonal of a related
     pair, both directions, 64-row chunks, 4 retained blocks (so some
     lanes finish inside the blocks and some do not)."""
@@ -44,12 +45,12 @@ def _mega_inputs(seed=21, n=1500, Bh=6, W=256):
     N = np.where(REV, A2 + 1, n - (A2 + 1)).astype(np.int32)
     ge = int(sc.gap_extend)
     goe = int(sc.gap_open + sc.gap_extend)
-    st_np, _ = tx.fresh_state_np(N.astype(np.int64), ge, goe, 3000, W,
+    st_np, _ = tx.fresh_state_np(N.astype(np.int64), ge, goe, y_drop, W,
                                  2 * Bh)
     seqs = (code_map[s1].astype(np.int8), code_map[s2].astype(np.int8))
     lane = (A1, A2, lo, hi, lo, hi, REV, M, N)
-    kw = dict(gap_e=ge, gap_oe=goe, y_drop=3000, lanes=W, rows=64,
-              max_blocks=4, alpha=16, trim_to_peak=True,
+    kw = dict(gap_e=ge, gap_oe=goe, y_drop=y_drop, lanes=W, rows=rows,
+              max_blocks=max_blocks, alpha=16, trim_to_peak=True,
               tb_cap=80 * 1024 * 1024)
     return seqs, lane, st_np, subsmall, kw
 
@@ -110,6 +111,61 @@ def test_cuda_ydrop_matches_plain():
                   subsmall, kw, with_tb=False)
     for a, b in zip(got2[2:], want2[2:]):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_tb", [True, False])
+@pytest.mark.parametrize("y_drop,min_band", [(9400, 160), (20000, 416)])
+def test_cuda_ydrop_wide_band_edges(y_drop, min_band, with_tb):
+    """K1 through ydrop_mega, one chunk per call, in the main path's
+    window (1536): at its y-drop (9400) bands wider than K1's narrow
+    tile (5 columns per thread, 160 columns), and at 20000 bands wider
+    than 416 columns, past its wide tile (9 per thread, 288), so that a
+    row takes several tiles.  The batch holds a lane done on entry, a
+    lane truncated before its first row, a lane whose rows end
+    mid-chunk (M = 100), a lane whose input CC/DD hold junk right of its
+    band (the plain version sets NEG there once a row runs), and lanes
+    that resume with shift != 0.  Every chunk's full CC/DD, scalars and
+    link bytes equal the plain version's, with and without link
+    bytes."""
+    dev = _card()
+    cpu = torch.device("cpu")
+    seqs, lane, st_np, subsmall, kw = _mega_inputs(
+        seed=5, n=6000, Bh=3, W=1536, y_drop=y_drop, rows=256, max_blocks=1)
+    lane = tuple(a.copy() for a in lane)
+    lane[7][2] = 100                       # M: stops mid-chunk
+    st_np = {k: v.copy() for k, v in st_np.items()}
+    st_np["done"][0] = True                # done on entry
+    st_np["tbp"][1] = kw["tb_cap"] - 5     # truncated before its first row
+    junk = np.random.default_rng(0).integers(-5000, 5000, 1536)
+    right = np.arange(1536) >= st_np["RY"][3]
+    st_np["CC"][3] = np.where(right, junk, st_np["CC"][3])
+    st_np["DD"][3] = np.where(right, junk - 7, st_np["DD"][3])
+    B = lane[0].shape[0]
+    st_g = st_c = st_np
+    prev_g = prev_c = np.zeros(B, np.int32)
+    shifted, band = False, 0
+    for _ in range(5):
+        got = _mega(dev, seqs, lane, st_g, prev_g, subsmall, kw,
+                    with_tb=with_tb)
+        want = _mega(cpu, seqs, lane, st_c, prev_c, subsmall, kw,
+                     with_tb=with_tb)
+        for k in tx.STATE_KEYS:
+            assert torch.equal(got[0][k].cpu(), want[0][k]), k
+        for name, a, b in zip(("prev_off", "packed", "tb_all", "row_lo",
+                               "row_hi", "col0"), got[1:], want[1:]):
+            assert torch.equal(a.cpu(), b), name
+        shifted |= bool((got[1].cpu() != torch.as_tensor(prev_c)).any())
+        band = max(band, int((want[0]["RY"] - want[0]["LY"]).max()))
+        st_g, prev_g = got[0], got[1]
+        st_c, prev_c = want[0], want[1]
+        if bool(st_c["done"].all()):
+            break
+    assert shifted and band > min_band
+    assert int(st_c["rows_used"][0]) == 0
+    assert int(st_c["status"][1]) & tx.ST_TRUNCATED
+    assert int(st_c["rows_used"][1]) == 0
+    assert int(st_c["rows_used"][2]) == 100
 
 
 @pytest.mark.cuda

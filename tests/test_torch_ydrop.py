@@ -26,6 +26,9 @@ CASES = {
     "boundary_noytrim": (8, 80, 256, 3000, 0.10, False, 1 << 20, 1, 3),
     "truncation": (8, 96, 256, 3000, 0.10, True, 600, 1, 4),
     "high_divergence": (8, 96, 256, 900, 0.45, True, 1 << 20, 1, 5),
+    # -- the main path's y-drop: bands past 416 columns, over several of
+    # K1's 288-column tiles (csrc/ydrop_chunk.cu)
+    "wide_band": (4, 160, 768, 9400, 0.20, True, 1 << 24, 1, 6),
 }
 
 
@@ -69,8 +72,10 @@ def _assert_state_equal(st_ref, st_port, what):
         assert np.array_equal(a, b), f"{what}: state[{k}] differs"
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_chunk_matches_jax_and_pallas(case):
+def _case_inputs(case):
+    """A CASES entry's sequences (compact codes, per lane), M, N, the
+    chunk keywords and the fresh state, checked against the JAX
+    package's helpers."""
     B, rows, W, y_drop, div, trim, tb_cap, chunks, seed = CASES[case]
     rng = np.random.default_rng(seed)
     sc = new_dna_score_set()
@@ -94,6 +99,14 @@ def test_chunk_matches_jax_and_pallas(case):
                                   B)
     for k in st_np:
         assert np.array_equal(st_np[k], ref_np[k])
+    return a_full, b_full, Ms, Ns, subsmall, kw, st_np
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_chunk_matches_jax_and_pallas(case):
+    B, rows, W = CASES[case][:3]
+    chunks = CASES[case][7]
+    a_full, b_full, Ms, Ns, subsmall, kw, st_np = _case_inputs(case)
     st_j = {k: jnp.asarray(v) for k, v in st_np.items()}
     st_p = {k: jnp.asarray(v) for k, v in st_np.items()}
     st_t = {k: torch.from_numpy(v) for k, v in st_np.items()}
@@ -107,7 +120,7 @@ def test_chunk_matches_jax_and_pallas(case):
         st_j, tb_j = jx.ydrop_chunk(*map(jnp.asarray, args_np), st_j,
                                     jnp.asarray(subsmall), **kw)
         st_p, tb_p = ydrop_chunk_pallas(*map(jnp.asarray, args_np), st_p,
-                                        jnp.asarray(subsmall), G=8,
+                                        jnp.asarray(subsmall), G=min(B, 8),
                                         interpret=True, **kw)
         launched = ydrop_chunk.launches
         st_t, tb_t = ydrop_chunk(*map(torch.from_numpy, args_np), st_t,
@@ -119,6 +132,58 @@ def test_chunk_matches_jax_and_pallas(case):
         assert np.array_equal(np.asarray(tb_p), tb_t.numpy())
         if np.asarray(st_j["done"]).all():
             break
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_rows_write_only_their_band(case):
+    """The invariant the band-only K1 relies on, row by row: a row that
+    runs leaves every link byte zero, and sets CC/DD to NEG, outside
+    [LYr, max(RYr + p, sentinel + 1)).  One row per call (rows=1,
+    shift=0, b_off=0), so each call's input and output state give LYr,
+    RYr, p and the sentinel; the last call is held against JAX's
+    ydrop_chunk on the same numpy inputs."""
+    B, rows, W = CASES[case][:3]
+    total = rows * CASES[case][7]
+    a_full, b_full, Ms, Ns, subsmall, kw, st_np = _case_inputs(case)
+    kw = dict(kw, rows=1)
+    b_win = np.zeros((B, W), np.int32)
+    b_win[:, 1:] = b_full[:, : W - 1]
+    zero = np.zeros(B, np.int32)
+    st = {k: torch.from_numpy(v) for k, v in st_np.items()}
+    widest = 0
+    for _ in range(total):
+        # a lane whose band left the window would need a re-anchor
+        st["done"] = st["done"] | (st["RY"] > W)
+        if bool(st["done"].all()):
+            break
+        row_base = st["row"].numpy().astype(np.int64) - 1
+        a_win = a_full[np.arange(B), np.minimum(row_base, a_full.shape[1] - 1)]
+        args_np = (a_win[:, None].astype(np.int32), b_win, zero, zero, Ms, Ns)
+        st_in = st
+        st, tb = tx.ydrop_chunk_plain(*map(torch.from_numpy, args_np), st_in,
+                                      torch.from_numpy(subsmall), **kw)
+        for b in np.nonzero((st["row"] != st_in["row"]).numpy())[0]:
+            LYr, RYr, RYo = (int(st_in["LY"][b]), int(st_in["RY"][b]),
+                             int(st["RY"][b]))
+            p = int(st["tbp"][b] - st_in["tbp"][b]) - (RYr - LYr)
+            assert RYo <= Ns[b]  # so the row wrote a sentinel at RYo - 1
+            lo = max(min(LYr, RYr), 0)
+            hi = min(max(RYr + p, RYo), W)
+            out = np.ones(W, bool)
+            out[lo:hi] = False
+            assert not tb[b, 1].numpy()[out].any()
+            assert (st["CC"][b].numpy()[out] == tx.NEG).all()
+            assert (st["DD"][b].numpy()[out] == tx.NEG).all()
+            widest = max(widest, hi - lo)
+    assert not tb[:, 0].any()
+    st_j, tb_j = jx.ydrop_chunk(*map(jnp.asarray, args_np),
+                                {k: jnp.asarray(v.numpy())
+                                 for k, v in st_in.items()},
+                                jnp.asarray(subsmall), **kw)
+    _assert_state_equal(st_j, st, f"{case} last row vs XLA")
+    assert np.array_equal(np.asarray(tb_j), tb.numpy())
+    if case == "wide_band":
+        assert widest > 416
 
 
 def test_mega_and_traceback_match_jax():
