@@ -12,18 +12,23 @@ Phases, one line each (any failure exits nonzero):
                128 lanes x 1536 columns x 1024 rows, the five cases of
                tests/test_ydrop_pallas_exact.py and a wide band at the
                main path's y-drop, with and without link bytes), K2
-               (x-drop scan, 2M hits), the traceback walk, and K3 and
-               K3b (band 512 x 1024 rows, 4,096 anchors of the 4 Mbp
-               pair below, forward and reverse); times each wrapper
-               call (K1's with the zeroed allocation of its link
-               buffer) next to its plain version with CUDA events, and
-               works out its bound from the inputs it was timed on
+               (x-drop scan, 2M hits, and XDROP_EDGES: n, drops and
+               ties at its stage and chunk edges), the traceback walk
+               (one mega launch, and walk_inputs' synthetic blocks at
+               WALK_EDGE_CAPS), and K3 and K3b (band 512 x 1024 rows,
+               4,096 anchors of the 4 Mbp pair below, forward and
+               reverse); times each wrapper call (K1's with the zeroed
+               allocation of its link buffer) next to its plain version
+               with CUDA events, and works out its bound from the
+               inputs it was timed on (and the walk's chain floor)
   3 main       the default run `lastz_tpu_torch.cli t.fa q.fa --stats`
                on a 4 Mbp synthetic pair (bench.py's ensure_pair
                recipe, seed 42: 600 conserved 2-6 kbp segments at
                72-85% identity), with every launch counter reset
-               before it and a CUDA event pair around each K1 launch
-               (the table's main_path_ms); requires launches of K1,
+               before it and a CUDA event pair around each launch of
+               K1, K2 and the walk (the table's main_path_ms), K2's
+               consumed cells over its live walks in buckets, and the
+               walk's longest lane per launch; requires launches of K1,
                K2 and the traceback, a nonzero device gapped share and
                the device seed search, then runs lastz_tpu's host path
                (a child process, the reference) on the same pair and
@@ -48,6 +53,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -81,13 +87,32 @@ K1_CASES = [
 ]
 # the K1 cases timed: the kernel table's row, then the wide band
 K1_TIMED = ("basic", "wide_band")
+# the walk's edge cases: caps at the edges of its 8-step groups and its
+# 64-row tiles and to the end of every walk (None), on blocks of (K, R1,
+# W); W = 200 takes the kernel's byte loads, 256 and 1536 (the main
+# path's window) its 16-byte loads
+WALK_EDGE_CAPS = [1, 8, 9, 63, 64, 65, 129, None]
+WALK_EDGE_GEOMETRY = [(4, 41, 200), (3, 97, 256), (8, 130, 1536)]
+# K2's edge cases: n at the stage and chunk edges of csrc/xdrop_scan.cu
+# (a first stage of 64 cells read 8 at a time, chunks of 32 x 8 cells),
+# and at the 128-cell rows of the Pallas kernel; drops at them,
+# best-score ties across them
+XDROP_EDGES = ([f"n{v}" for v in (0, 1, 31, 32, 33, 63, 64, 65, 127, 128,
+                                  129, 255, 256, 257)]
+               + [f"drop_at_{v}" for v in (31, 32, 63, 128, 256)]
+               + [f"tie_{v}" for v in (32, 128, 256)])
 
 
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes per
 # second, and int32 operations per second outside the tensor cores --
 # 64 INT32 lanes on each of the 132 SMs at the 1980 MHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+CLOCK_HZ = 1.98e9
+INT32_OPS_PER_S = 132 * 64 * CLOCK_HZ
+# The floor of a serial walk (beside, not instead of, the roofline
+# bound): its longest lane's steps, each one dependent shared-memory
+# step of about 30 cycles.
+WALK_STEP_CYCLES = 30
 # int32 operations a kernel needs per DP cell of the y-drop band these
 # inputs need (per scanned cell for K2, per step for the walk):
 #   K3/K3b: score lookup, diagonal add, D (2 sub, max), I (2 sub, max),
@@ -333,15 +358,98 @@ def _related_codes(rng, n, ident):
     return s1, s2
 
 
-def check_k2(dev):
-    """K2 against xdrop_scan_plain on 2M hits of a 4 Mbp pair: half on
-    the conserved diagonal (long scans inside its segments), half
-    random (short)."""
+def walk_inputs(seed=0, B=16, K=4, R1=41, W=200):
+    """Synthetic input of the traceback walk: random link bytes (half
+    of them diagonal), K stacked blocks of R1 - 1 rows with random
+    column origins, so that walks cross blocks and meet every clamp.
+    Lane 0 is not wanted; lane 1 starts right of its block's window
+    (lane clamp W - 1) and below its last row (local clamp R1 - 1);
+    lane 2 reaches column 0 with rows left (col < 0) and lane 3 row 0
+    with columns left (the row-0 insertion run).  Returns numpy
+    (tb_all, row_lo, row_hi, col0, nblk, end1, end2, want)."""
+    rng = np.random.default_rng(seed)
+    cid = rng.choice(4, size=(B, K, R1, W), p=[0.5, 0.2, 0.2, 0.1])
+    tb = (cid | (rng.integers(0, 4, cid.shape) << 2)).astype(np.uint8)
+    nblk = rng.integers(1, K + 1, B).astype(np.int32)
+    nblk[:4] = K
+    kk = np.arange(K)[None, :]
+    live = kk < nblk[:, None]
+    row_lo = np.where(live, 1 + (R1 - 1) * kk, 0).astype(np.int32)
+    row_hi = np.where(live, row_lo + R1 - 2, 0).astype(np.int32)
+    col0 = np.where(live, rng.integers(0, 60, (B, K)), 0).astype(np.int32)
+    last = nblk - 1
+    end1 = (row_lo[np.arange(B), last]
+            + rng.integers(0, R1 - 1, B)).astype(np.int32)
+    end2 = (col0[np.arange(B), last]
+            + rng.integers(0, W, B)).astype(np.int32)
+    want = rng.random(B) < 0.9
+    want[0] = False
+    want[1:4] = True
+    end1[1] = row_lo[1, -1] + R1 + 5
+    end2[1] = col0[1, -1] + W + 7
+    end1[2], end2[2] = (R1 - 1) * K - 3, 6
+    end1[3], end2[3] = 5, W - 1
+    return tb, row_lo, row_hi, col0, nblk, end1, end2, want
+
+
+def _edge_walks(case, rng):
+    """The walks of one XDROP_EDGES case as per-cell score lists and n,
+    and the expected (consumed, best, kbest) of its first walk.  Cells
+    right after n score -500 (a drop, were they read) and then +10."""
+    up = [10] * 20
+    kind, v = re.fullmatch(r"(\D+)(\d+)", case).groups()
+    v = int(v)
+    if kind == "n":   # runs to n, then the same with random steps
+        walk = [10] * v + [-500] + up
+        rnd = list(rng.choice([10, -10, 0], v)) + [-500] + up
+        return [(walk, v), (rnd, v), (rnd, v + 1)], (v, 10 * v,
+                                                     v - 1 if v else -1)
+    if kind == "drop_at_":
+        walk = [10] * v + [-500] + up * 15
+        return [(walk, 300), (walk, v + 1), (walk, v)], (v + 1, 10 * v,
+                                                         v - 1)
+    # tie_: the best sum again one cell after a v-cell boundary
+    walk = [10] * v + [-10, 10] + [-10] * 40
+    return [(walk, 300), (walk, v + 2)], (v + 33, 10 * v, v - 1)
+
+
+def xdrop_edge_inputs(case):
+    """One XDROP_EDGES case on a 4-code alphabet: each walk's scores are
+    laid out from its hit on the diagonal, right from p and left from
+    p - 1 alike.  Returns numpy (seq1p, seq2p, subflat, pos1, pos2, n_l,
+    n_r), x_drop and the first walk's expected (consumed, best,
+    kbest)."""
+    from lastz_tpu_torch.device import SEQ_PAD
+    rng = np.random.default_rng(len(case) * 100 + sum(map(ord, case)))
+    hits, expect = _edge_walks(case, rng)
+    code = {10: 0, -10: 1, -500: 2, 0: 3}
+    sub = rng.integers(-150, 100, (4, 4)).astype(np.int32)
+    sub[0] = [10, -10, -500, 0]
+    span = max(len(w) for w, _ in hits) + 8
+    L = span * (2 * len(hits) + 1)
+    s1 = rng.integers(0, 4, L).astype(np.int8)
+    s2 = rng.integers(0, 4, L).astype(np.int8)
+    pos = span * (2 * np.arange(len(hits)) + 1)
+    for p, (walk, _) in zip(pos, hits):
+        c = np.array([code[s] for s in walk], np.int8)
+        s1[p: p + len(c)] = 0
+        s2[p: p + len(c)] = c
+        s1[p - len(c): p] = 0
+        s2[p - len(c): p] = c[::-1]
+    pad = np.zeros(SEQ_PAD, np.int8)
+    n = np.array([m for _, m in hits], np.int32)
+    return ((np.concatenate([pad, s1, pad]), np.concatenate([pad, s2, pad]),
+             sub.reshape(-1), pos.astype(np.int32), pos.astype(np.int32), n,
+             n), 300, expect)
+
+
+def k2_setup(dev):
+    """K2's table shape: the arguments of xdrop_scan for 2M hits of a
+    4 Mbp pair, half on the conserved diagonal (long scans inside its
+    segments), half random (short)."""
     import torch
     from lastz_tpu_torch.core.scoring import new_dna_score_set
     from lastz_tpu_torch.device import carry_state
-    from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
-    from lastz_tpu_torch.ops.hitgen import xdrop_scan_plain
     rng = np.random.default_rng(7)
     n = PAIR_BP
     # unrelated background with a conserved 3 kbp segment (85%
@@ -361,42 +469,78 @@ def check_k2(dev):
     t = [torch.from_numpy(a.astype(np.int32)).to(dev)
          for a in (pos1, pos2, n_l, n_r)]
     subflat = state["subsmall_t"].reshape(-1)
-    args = (state["seq1p"], state["seq2p"], subflat, 16, *t, 910)
+    return (state["seq1p"], state["seq2p"], subflat, 16, *t, 910)
+
+
+def k2_bytes(args, got):
+    """K2's bytes (inputs and outputs once) and scanned cells."""
+    cells = int(got[0][0].long().sum() + got[1][0].long().sum())
+    return nbytes(*args[:3], *args[4:8], *got[0], *got[1]), cells
+
+
+def same(got, want, what):
+    """Max abs error of two tuples of tensors; raises unless 0."""
+    err = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        e = max_abs_diff(a, b)
+        if e:
+            raise AssertionError(f"{what}: output {i} differs by {e}")
+        err = max(err, e)
+    return err
+
+
+def check_k2_edges(dev):
+    """K2 against its plain version on XDROP_EDGES."""
+    import torch
+    from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
+    err = 0
+    for case in XDROP_EDGES:
+        arrays, x_drop, expect = xdrop_edge_inputs(case)
+        cpu = [torch.from_numpy(a) for a in arrays]
+        on = [a.to(dev) for a in cpu]
+        got = xdrop_scan(*on[:3], 4, *on[3:], x_drop)
+        want = xdrop_scan(*cpu[:3], 4, *cpu[3:], x_drop)
+        err = max(err, same([a.cpu() for a in got[0] + got[1]],
+                            want[0] + want[1], f"K2 edge {case}"))
+        for side in want:
+            if tuple(int(a[0]) for a in side) != expect:
+                raise AssertionError(f"K2 edge {case}: not {expect}")
+    say("kernels", kernel="xdrop_scan", edge_cases=len(XDROP_EDGES),
+        equal=True)
+    return err
+
+
+def check_k2(dev):
+    """K2 against xdrop_scan_plain at k2_setup's shape and on the edge
+    cases."""
+    import torch
+    from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
+    from lastz_tpu_torch.ops.hitgen import xdrop_scan_plain
+    args = k2_setup(dev)
     got = xdrop_scan(*args)
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    ref = (xdrop_scan_plain(state["seq1p"], state["seq2p"], subflat, 16,
-                            t[0] - 1, t[1] - 1, t[2], 910, -1),
-           xdrop_scan_plain(state["seq1p"], state["seq2p"], subflat, 16,
-                            t[0], t[1], t[3], 910, +1))
+    s1, s2, subflat, K, p1, p2, nl, nr, xd = args
+    ref = (xdrop_scan_plain(s1, s2, subflat, K, p1 - 1, p2 - 1, nl, xd, -1),
+           xdrop_scan_plain(s1, s2, subflat, K, p1, p2, nr, xd, +1))
     torch.cuda.synchronize()
     plain_ms = 1000 * (time.monotonic() - t0)
-    err = 0
-    for side, g, r in zip(("left", "right"), got, ref):
-        for name, a, b in zip(("consumed", "best", "kbest"), g, r):
-            e = max_abs_diff(a, b)
-            if e:
-                raise AssertionError(f"K2 {side} {name} differs by {e}")
-            err = max(err, e)
+    err = same(got[0] + got[1], ref[0] + ref[1], "K2")
+    err = max(err, check_k2_edges(dev))
     ms = cuda_ms(lambda: xdrop_scan(*args), 5)
-    say("kernels", kernel="xdrop_scan", hits=H,
+    say("kernels", kernel="xdrop_scan", hits=K2_HITS,
         mean_consumed_right=float(got[1][0].float().mean()), equal=True)
-    cells = int(got[0][0].long().sum() + got[1][0].long().sum())
-    n_bytes = nbytes(state["seq1p"], state["seq2p"], subflat, *t,
-                     *got[0], *got[1])
-    return err, ms, plain_ms, n_bytes, cells
+    return (err, ms, plain_ms, *k2_bytes(args, got))
 
 
-def check_traceback(dev):
-    """The traceback kernel against traceback_mega_plain on one
-    production mega launch: 64 anchors on a related 6 kbp pair, both
+def walk_setup(dev):
+    """The walk's table shape: the arguments of traceback_mega for one
+    production mega launch, 64 anchors on a related 6 kbp pair, both
     directions, 8 blocks of 1024 rows over a 1536-column window."""
     import torch
     from lastz_tpu_torch.core.scoring import new_dna_score_set
-    from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega
     from lastz_tpu_torch.ops.ydrop_exact import (fresh_state_np,
                                                  make_compact_alphabet,
-                                                 traceback_mega_plain,
                                                  ydrop_mega)
     rng = np.random.default_rng(11)
     Bh, W, rows, blocks, n = (TB_SHAPE[k] for k in
@@ -422,30 +566,67 @@ def check_traceback(dev):
         T(subsmall), gap_e=ge, gap_oe=goe, y_drop=9400, lanes=W, rows=rows,
         max_blocks=blocks, alpha=16, trim_to_peak=True,
         tb_cap=80 * 1024 * 1024)
-    want = st["done"]
     cap = blocks * rows + W + 512
-    args = (tb_all, row_lo, row_hi, col0, packed[12], st["end1"],
-            st["end2"], want, cap)
+    return (tb_all, row_lo, row_hi, col0, packed[12], st["end1"],
+            st["end2"], st["done"], cap)
+
+
+def walk_bytes(args, got):
+    """The walk's bytes and steps: it reads one link byte and writes one
+    op byte per step (the rest of the link blocks is never read), and
+    reads and writes the per-lane arrays once."""
+    steps = int(got[1][args[7]].long().sum())
+    return 2 * steps + nbytes(*args[1:8], got[0], *got[1:]), steps
+
+
+def chain_floor_ms(max_steps):
+    """The floor of a serial walk: its longest lane's steps, one
+    dependent shared-memory step each (WALK_STEP_CYCLES)."""
+    return 1e3 * max_steps * WALK_STEP_CYCLES / CLOCK_HZ
+
+
+def check_walk_edges(dev):
+    """The walk against its plain version on walk_inputs, at every
+    WALK_EDGE_GEOMETRY and WALK_EDGE_CAPS."""
+    import torch
+    from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega
+    err = 0
+    for K, R1, W in WALK_EDGE_GEOMETRY:
+        cpu = [torch.from_numpy(a) for a in walk_inputs(1, K=K, R1=R1, W=W)]
+        on = [a.to(dev) for a in cpu]
+        for cap in WALK_EDGE_CAPS:
+            cap = cap or K * R1 + W + 512
+            got = traceback_mega(*on, cap)
+            want = traceback_mega(*cpu, cap)
+            err = max(err, same([a.cpu() for a in got], want,
+                                f"walk edge {(K, R1, W)} cap {cap}"))
+    say("kernels", kernel="ydrop_traceback",
+        edge_cases=len(WALK_EDGE_GEOMETRY) * len(WALK_EDGE_CAPS), equal=True)
+    return err
+
+
+def check_traceback(dev):
+    """The traceback kernel against traceback_mega_plain at walk_setup's
+    shape and on the edge cases."""
+    import torch
+    from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega
+    from lastz_tpu_torch.ops.ydrop_exact import traceback_mega_plain
+    args = walk_setup(dev)
     got = traceback_mega(*args)
     torch.cuda.synchronize()
     t0 = time.monotonic()
     ref = traceback_mega_plain(*args)
     torch.cuda.synchronize()
     plain_ms = 1000 * (time.monotonic() - t0)
-    err = 0
-    for name, a, b in zip(("ops", "n", "row", "col"), got, ref):
-        e = max_abs_diff(a, b)
-        if e:
-            raise AssertionError(f"traceback {name} differs by {e}")
-        err = max(err, e)
+    err = max(same(got, ref, "traceback"), check_walk_edges(dev))
     ms = cuda_ms(lambda: traceback_mega(*args), 3)
-    say("kernels", kernel="ydrop_traceback", lanes=2 * Bh,
-        walked=int(want.sum()), max_steps=int(got[1].max()), equal=True)
-    # the walk reads one link byte and writes one op byte per step; the
-    # rest of the link blocks is never read
-    steps = int(got[1][want].long().sum())
-    n_bytes = 2 * steps + nbytes(*args[1:8], got[0], *got[1:])
-    return err, ms, plain_ms, n_bytes, steps
+    max_steps = int(got[1].max())
+    floor = chain_floor_ms(max_steps)
+    say("kernels", kernel="ydrop_traceback", lanes=len(args[7]),
+        walked=int(args[7].sum()), max_steps=max_steps,
+        chain_floor_ms=floor, equal=True)
+    return (err, ms, plain_ms, *walk_bytes(args, got),
+            {"chain_floor_ms": floor})
 
 
 def anchor_batches(pair):
@@ -519,7 +700,7 @@ def check_k3(dev, batches, name):
                         * (args[1] >= 0).sum(1).long()).sum())
             say("kernels", kernel=name, live_cells=cells, grid_cells=grid)
             n_bytes = nbytes(*args, got)
-    return err, ms, plain_ms, n_bytes, cells, refs
+    return err, ms, plain_ms, n_bytes, cells, {"refs": refs}
 
 
 def phase_kernels(card, pair):
@@ -546,15 +727,16 @@ def phase_kernels(card, pair):
             ("ydrop_band", lambda: check_k3(dev, batches, "ydrop_band"),
              "lastz_tpu_torch/csrc/ydrop_wavefront.cu",
              "lastz_tpu/ops/ydrop_pallas.py:38")):
-        err, ms, plain_ms, n_bytes, cells, *ref = run()
-        if ref:
-            refs[name] = ref[0]
+        err, ms, plain_ms, n_bytes, cells, *more = run()
+        extra = more[0] if more else {}
+        if "refs" in extra:
+            refs[name] = extra.pop("refs")
         bound_ms, bound_by = bound(name, n_bytes, cells)
         # no single PyTorch call computes any of these functions
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None))
+                         library_ms=None, **extra))
         say("kernels", kernel=name, tolerance=0, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bytes=n_bytes, cells=cells,
             bound_ms=bound_ms, bound_by=bound_by, card=card)
@@ -682,6 +864,110 @@ def launch_ms(events):
                 min_ms=float(ms.min()), max_ms=float(ms.max()))
 
 
+# the main path's kernels, by the C entry point each one launches
+MAIN_ENTRIES = {"ydrop_chunk": "ydrop_chunk_launch",
+                "xdrop_scan": "xdrop_scan_launch",
+                "ydrop_traceback": "ydrop_traceback_launch"}
+# upper edges of the buckets of K2's consumed cells on the main path
+CONSUMED_BUCKETS = (32, 64, 256)
+
+
+class _Seen:
+    """A kernel wrapper's stand-in: calls it, then see(args, result).
+    Its `launches` is the wrapper's own count, which the wrapper bumps
+    through its module's name for it."""
+
+    def __init__(self, own, see):
+        self.own, self.see = own, see
+
+    def __call__(self, *a, **kw):
+        out = self.own(*a, **kw)
+        self.see(a, out)
+        return out
+
+    @property
+    def launches(self):
+        return self.own.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.own.launches = n
+
+
+@contextlib.contextmanager
+def observed(module, name, see):
+    """Calls see(args, result) after every call of module.name inside
+    the block."""
+    own = getattr(module, name)
+    setattr(module, name, _Seen(own, see))
+    try:
+        yield
+    finally:
+        setattr(module, name, own)
+
+
+@contextlib.contextmanager
+def main_path_probes():
+    """Around the main path's run: a CUDA event pair around every launch
+    of its three kernels, the histogram of K2's consumed cells over its
+    live walks (n > 0) by direction, and the walk's longest wanted lane
+    in each launch.  Yields the dict that main_path_report reads."""
+    import torch
+    from lastz_tpu_torch.align import ydrop_device
+    from lastz_tpu_torch.ops import xdrop_cuda
+    probes = {"hist": [], "walk_max": []}
+
+    def see_k2(a, out):
+        rows = []
+        for n, (consumed, _, _) in zip(a[6:8], out):
+            c = consumed[n > 0]
+            lo = 0
+            row = []
+            for hi in CONSUMED_BUCKETS:
+                row.append(((c > lo) & (c <= hi)).sum())
+                lo = hi
+            row.append((c > lo).sum())
+            rows.append(torch.stack(row))
+        probes["hist"].append(torch.stack(rows))
+
+    def see_walk(a, out):
+        probes["walk_max"].append(torch.where(a[7], out[1], 0).max())
+
+    with contextlib.ExitStack() as stack:
+        for name, entry in MAIN_ENTRIES.items():
+            probes[name] = stack.enter_context(timed_launches(entry))
+        stack.enter_context(observed(xdrop_cuda, "xdrop_scan", see_k2))
+        stack.enter_context(observed(ydrop_device, "traceback_mega",
+                                     see_walk))
+        yield probes
+
+
+def main_path_report(probes, launches, card):
+    """Prints what main_path_probes saw; returns each kernel's mean
+    device ms a launch and the walk's summed chain floor."""
+    import torch
+    mean_ms = {}
+    for name in MAIN_ENTRIES:
+        ms = launch_ms(probes[name])
+        if ms["launches"] != launches[name]:
+            raise AssertionError(f"{name}'s timed calls and launches differ")
+        say("main", kernel=name, device_ms_per_launch=ms, card=card)
+        mean_ms[name] = ms["mean_ms"]
+    hist = torch.stack(probes["hist"]).sum(0).cpu().tolist()
+    names = [f"<={b}" for b in CONSUMED_BUCKETS] + [
+        f">{CONSUMED_BUCKETS[-1]}"]
+    say("main", kernel="xdrop_scan", consumed_cells_of_live_walks={
+        side: dict(zip(names, row)) for side, row in
+        (("left", hist[0]), ("right", hist[1]),
+         ("both", [a + b for a, b in zip(*hist)]))})
+    walk_max = [int(m) for m in probes["walk_max"]]
+    floor = sum(chain_floor_ms(m) for m in walk_max)
+    say("main", kernel="ydrop_traceback", max_steps=max(walk_max),
+        max_steps_per_launch=walk_max, chain_floor_ms_total=floor,
+        chain_floor_ms_per_launch=floor / len(walk_max), card=card)
+    return mean_ms, floor
+
+
 def require_launched(launches, path):
     """Fails when a kernel of the path just driven was not launched."""
     for k in path:
@@ -726,7 +1012,8 @@ def run_alone(tdir, argv, out_path):
 
 def phase_main(card, pair):
     """Returns each kernel's launch count in the port's main-path run,
-    and K1's mean device ms per launch there."""
+    the mean device ms a launch there of K1, K2 and the walk, and the
+    walk's summed chain floor there."""
     import torch
     import lastz_tpu_torch.stats as tstats
     from lastz_tpu_torch import cli
@@ -743,7 +1030,7 @@ def phase_main(card, pair):
         err = io.StringIO()
         t0 = time.monotonic()
         with open(port_out, "w") as f, contextlib.redirect_stdout(f), \
-                contextlib.redirect_stderr(err), timed_launches() as k1_ev:
+                contextlib.redirect_stderr(err), main_path_probes() as probes:
             rc = cli.main(argv)
         torch.cuda.synchronize()
         port_s = time.monotonic() - t0
@@ -760,13 +1047,8 @@ def phase_main(card, pair):
             alignments=st.alignments,
             timers={k: round(v, 3) for k, v in st.timers.items()},
             extra=st.extra, card=card)
-        require_launched(launches, ("ydrop_chunk", "xdrop_scan",
-                                    "ydrop_traceback"))
-        k1 = launch_ms(k1_ev)
-        say("main", kernel="ydrop_chunk", device_ms_per_launch=k1,
-            card=card)
-        if k1["launches"] != launches["ydrop_chunk"]:
-            raise AssertionError("K1's timed calls and launches differ")
+        require_launched(launches, tuple(MAIN_ENTRIES))
+        main_ms, walk_floor = main_path_report(probes, launches, card)
         if st.gapped_device <= 0:
             raise AssertionError("no anchor was extended on the device")
         if seed_runs <= 0:
@@ -800,7 +1082,7 @@ def phase_main(card, pair):
             lav_bytes=len(c), lav_equal=a == c, card=card)
         if a != c:
             raise AssertionError("the port alone wrote other LAV")
-    return launches, {"ydrop_chunk": k1["mean_ms"]}
+    return launches, main_ms, walk_floor
 
 
 def phase_extend(card, pair, refs):
@@ -853,13 +1135,18 @@ def main():
     say("pair", bp=[len(pair[0]), len(pair[1])], segments=len(pair[2]),
         make_s=round(time.monotonic() - t0, 3))
     rows, refs = phase_kernels(card, pair)
-    launches, main_ms = phase_main(card, pair)
+    launches, main_ms, walk_floor = phase_main(card, pair)
     launches.update({k: v for k, v in phase_extend(card, pair, refs).items()
                      if k in ("ydrop_wavefront", "ydrop_band")})
-    # main_path_ms: the mean device ms of a launch on the main path (K1)
-    rows = [{**r, "launches": launches[r["name"]],
-             **({"main_path_ms": main_ms[r["name"]]}
-                if r["name"] in main_ms else {})} for r in rows]
+    # main_path_ms: the mean device ms of a launch on the main path (K1,
+    # K2, the walk); the walk's chain floors are at the table's shape and
+    # summed over its main-path launches
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+        if r["name"] in main_ms:
+            r["main_path_ms"] = main_ms[r["name"]]
+        if r["name"] == "ydrop_traceback":
+            r["main_path_chain_floor_ms"] = walk_floor
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "ydrop_chunk_launch": [_P] * 11 + [_LL] + [_I] * 9 + [_P],
     "ydrop_traceback_launch": [_P] * 11 + [_I] * 5 + [_P],
     "xdrop_scan_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _LL,
-                          _P, _P],
+                          _P, _P, _P, _P],
     "ydrop_wavefront_launch": [_P] * 5 + [_I] * 3 + [_P],
     "ydrop_band_launch": [_P] * 5 + [_I] * 3 + [_P],
 }

@@ -4,12 +4,13 @@
                lastz_tpu/ops/xdrop_pallas.py::_make_kernel (:91),
                launched by xdrop_scan_pallas (:238)
 
-For CUDA tensors it launches the kernel on torch.cuda.current_stream()
-(both directions of every hit in one launch) and raises when the
-launch fails; it takes the plain version (ops/hitgen.xdrop_scan_plain)
-only for tensors on the CPU.  `xdrop_scan.launches` counts kernel
-launches and nothing else.  What bounds the kernel on the card is
-noted at the top of its source.
+For CUDA tensors it launches the kernel's two stages on
+torch.cuda.current_stream() (both directions of every hit, through one
+C entry point) and raises when the launch fails; it takes the plain
+version (ops/hitgen.xdrop_scan_plain) only for tensors on the CPU.
+`xdrop_scan.launches` counts calls of that entry point and nothing
+else.  What bounds the kernel on the card is noted at the top of its
+source.
 """
 
 from __future__ import annotations
@@ -50,10 +51,15 @@ def xdrop_scan(seq1p, seq2p, subflat, K: int, pos1, pos2, n_l, n_r,
     sub = subflat.to(_I32).contiguous()
     p1, p2, nl, nr = (a.to(_I32).contiguous()
                       for a in (pos1, pos2, n_l, n_r))
+    # stage 1's queue of the walks it hands to stage 2, and the counts
+    # of queued and taken walks
+    queue = torch.empty(2 * H, dtype=_I32, device=pos1.device)
+    counters = torch.zeros(2, dtype=_I32, device=pos1.device)
     rc = build.load().xdrop_scan_launch(
         s1.data_ptr(), s2.data_ptr(), sub.data_ptr(), K, p1.data_ptr(),
         p2.data_ptr(), nl.data_ptr(), nr.data_ptr(), H, x_drop, SEQ_PAD,
-        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        out.data_ptr(), queue.data_ptr(), counters.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
     build.check(rc, "xdrop_scan")
     xdrop_scan.launches += 1
     return tuple(out[:3]), tuple(out[3:])

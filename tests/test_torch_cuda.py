@@ -18,6 +18,8 @@ from lastz_tpu_torch.ops import ydrop_pallas as tp
 from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
 from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega, ydrop_chunk
 
+from chip_smoke import (WALK_EDGE_CAPS, WALK_EDGE_GEOMETRY, XDROP_EDGES,
+                        walk_inputs, xdrop_edge_inputs)
 from test_hitgen import _related_pair
 
 
@@ -226,3 +228,44 @@ def test_cuda_wavefront_and_band_match_plain(band, rows, y_drop):
         want = plain(*args, band=band, max_rows=rows)
         assert torch.equal(got, want), fn.__name__
         assert int(got[:, 0].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", WALK_EDGE_CAPS)
+@pytest.mark.parametrize("geometry", WALK_EDGE_GEOMETRY)
+def test_cuda_walk_edges(geometry, cap):
+    """The traceback kernel against its plain version on synthetic
+    blocks (chip_smoke.walk_inputs): caps at the edges of its 8-step
+    groups and 64-row tiles, and to the end of every walk (None); walks
+    that cross blocks and meet the lane, local, column-0 and row-0
+    edges."""
+    dev = _card()
+    K, R1, W = geometry
+    args = [torch.from_numpy(a) for a in walk_inputs(1, K=K, R1=R1, W=W)]
+    cap = cap or K * R1 + W + 512
+    n0 = traceback_mega.launches
+    got = traceback_mega(*(a.to(dev) for a in args), cap)
+    assert traceback_mega.launches == n0 + 1
+    want = traceback_mega(*args, cap)
+    for name, a, b in zip(("ops", "n", "row", "col"), got, want):
+        assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", XDROP_EDGES)
+def test_cuda_xdrop_edges(case):
+    """K2 against its plain version at its stage and chunk edges, both
+    directions."""
+    dev = _card()
+    arrays, x_drop, expect = xdrop_edge_inputs(case)
+    s1, s2, sub, *rest = (torch.from_numpy(a) for a in arrays)
+    n0 = xdrop_scan.launches
+    got = xdrop_scan(s1.to(dev), s2.to(dev), sub.to(dev), 4,
+                     *(a.to(dev) for a in rest), x_drop)
+    assert xdrop_scan.launches == n0 + 1
+    want = xdrop_scan(s1, s2, sub, 4, *rest, x_drop)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a.cpu(), b)
+    for side in want:
+        assert tuple(int(a[0]) for a in side) == expect

@@ -30,6 +30,7 @@ from lastz_tpu_torch.search import device_hits
 from lastz_tpu_torch.search.engine import HitProcessorParams as THitParams
 from lastz_tpu_torch.search.engine import SeedSearchEngine
 
+from chip_smoke import XDROP_EDGES, xdrop_edge_inputs
 from test_hitgen import SCALAR, _collect, _related_pair
 
 CPU = torch.device("cpu")
@@ -70,6 +71,26 @@ def test_xdrop_plain_matches_jax(K):
         for name, a, b in zip(("consumed", "best", "kbest"), ref, got):
             assert np.array_equal(np.asarray(a), b.numpy()), (step, name)
         assert int(got[0].max()) > jh.XD_FIRST  # continuation rounds ran
+
+
+@pytest.mark.parametrize("case", XDROP_EDGES)
+def test_xdrop_plain_edges_match_jax(case):
+    """The plain scan against _xdrop_all at the edges of the CUDA
+    kernel's stages and chunks (chip_smoke.XDROP_EDGES): n
+    at 32- and 128-cell edges, drops at them, ties across them, walks
+    that run to n; both directions."""
+    (s1, s2, sub, pos1, pos2, n_l, n_r), x_drop, expect = \
+        xdrop_edge_inputs(case)
+    for step, p1, p2, cells in ((+1, pos1, pos2, n_r),
+                                (-1, pos1 - 1, pos2 - 1, n_l)):
+        ref = jh._xdrop_all(*map(jnp.asarray, (s1, s2, sub)), 4,
+                            *map(jnp.asarray, (p1, p2, cells)), x_drop, step)
+        got = th.xdrop_scan_plain(*map(torch.from_numpy, (s1, s2, sub)), 4,
+                                  *map(torch.from_numpy, (p1, p2, cells)),
+                                  x_drop, step)
+        for name, a, b in zip(("consumed", "best", "kbest"), ref, got):
+            assert np.array_equal(np.asarray(a), b.numpy()), (step, name)
+        assert tuple(int(a[0]) for a in got) == expect, step
 
 
 def _launch_inputs(s1, s2, seed_str, trans):

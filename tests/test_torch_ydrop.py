@@ -16,6 +16,7 @@ from lastz_tpu.ops.ydrop_pallas_exact import ydrop_chunk_pallas
 from lastz_tpu_torch.ops import ydrop_exact as tx
 from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega, ydrop_chunk
 
+from chip_smoke import WALK_EDGE_CAPS, walk_inputs
 from test_torch_cuda import _mega_inputs
 
 CASES = {
@@ -238,3 +239,29 @@ def test_mega_and_traceback_match_jax():
     _assert_state_equal(j2[0], t2[0], "continuation")
     for name, i in (("prev_off", 1), ("packed", 2), ("row_lo", 4)):
         assert np.array_equal(np.asarray(j2[i]), t2[i].numpy()), name
+
+
+@pytest.mark.parametrize("cap", WALK_EDGE_CAPS)
+def test_walk_matches_jax_on_synthetic_blocks(cap):
+    """The walk against traceback_mega_dev on random link bytes
+    (chip_smoke.walk_inputs), at caps on the edges of the CUDA kernel's
+    8-step groups and 64-row tiles and to the end of every walk
+    (None)."""
+    arrays = walk_inputs()
+    K, R1, W = arrays[0].shape[1:]
+    full = cap is None
+    cap = cap or K * R1 + W + 512
+    ref = jx.traceback_mega_dev(*map(jnp.asarray, arrays), cap=cap)
+    got = traceback_mega(*map(torch.from_numpy, arrays), cap)
+    for name, a, b in zip(("ops", "n", "row", "col"), ref, got):
+        assert np.array_equal(np.asarray(a), b.numpy()), name
+    n, row, col = (a.numpy() for a in got[1:])
+    assert n[0] == 0 and row[0] == 0 and col[0] == 0  # not wanted
+    if full:
+        # lane 1 walked through every block to its start; some lane
+        # went past column 0 (where a clamped cell that keeps sending it
+        # left holds it until the cap); lane 3 ran along row 0
+        assert row[1] <= 0 and col[1] <= 0 and n[1] > 3 * (R1 - 1)
+        assert (col < 0).any()
+        ops3 = got[0][3].numpy()
+        assert row[3] == 0 and (ops3[n[3] - 5: n[3]] == tx.OP_I).all()
