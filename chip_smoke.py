@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of lastz_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py      # every phase, one card
+    python3 chip_smoke.py                  # every phase, one card
+    python3 chip_smoke.py --parent DIR     # ... and DIR's port beside
 
 Phases, one line each (any failure exits nonzero):
   1 toolchain  card name and power limit, torch / CUDA / nvcc versions,
@@ -15,26 +16,41 @@ Phases, one line each (any failure exits nonzero):
                (x-drop scan, 2M hits, and XDROP_EDGES: n, drops and
                ties at its stage and chunk edges), the traceback walk
                (one mega launch, and walk_inputs' synthetic blocks at
-               WALK_EDGE_CAPS), and K3 and K3b (band 512 x 1024 rows,
+               WALK_EDGE_CAPS), K3 and K3b (band 512 x 1024 rows,
                4,096 anchors of the 4 Mbp pair below, forward and
-               reverse); times each wrapper call (K1's with the zeroed
+               reverse), and the chain walk on CHAIN_EDGES in both
+               modes; times each wrapper call (K1's with the zeroed
                allocation of its link buffer) next to its plain version
                with CUDA events, and works out its bound from the
                inputs it was timed on (and the walk's chain floor)
+  index        the position table built on the card against the host
+               build (12of19): the 4 Mbp target and an INDEX_BP target
+               with lowercase and N runs; both times, the memory peak
   3 main       the default run `lastz_tpu_torch.cli t.fa q.fa --stats`
                on a 4 Mbp synthetic pair (bench.py's ensure_pair
                recipe, seed 42: 600 conserved 2-6 kbp segments at
                72-85% identity), with every launch counter reset
                before it and a CUDA event pair around each launch of
-               K1, K2 and the walk (the table's main_path_ms), K2's
-               consumed cells over its live walks in buckets, and the
-               walk's longest lane per launch; requires launches of K1,
-               K2 and the traceback, a nonzero device gapped share and
-               the device seed search, then runs lastz_tpu's host path
-               (a child process, the reference) on the same pair and
-               requires byte-equal LAV; then runs the port's CLI once more from
-               a copy of lastz_tpu_torch alone (a child process with
-               jax and lastz_tpu blocked) and requires the same LAV
+               K1, K2, the walk and the chain walk (the table's
+               main_path_ms), K2's consumed cells over its live walks in
+               buckets, and the walk's longest lane per launch; requires
+               launches of all four, a DevicePositionTable never fetched
+               to the host nor uploaded again, a nonzero device gapped
+               share and the seed stage on the device only, then runs
+               lastz_tpu's host path (a child process, the reference) on
+               the same pair and requires byte-equal LAV; then runs the
+               port's CLI once more from a copy of lastz_tpu_torch alone
+               (a child process with jax and lastz_tpu blocked) and
+               requires the same LAV (and with --parent, DIR's port the
+               same way, its --stats timers beside this one's)
+  modes        --recoverseeds, --word=20 (an overweight seed) and a
+               capsule (--writecapsule by the port, --targetcapsule run
+               twice in this process) on the same pair, every counter
+               reset before each: LAV byte-equal to lastz_tpu's CLI, no
+               "seed host searches", launches of K2 and of the chain
+               walk in its mode, the capsule's DeviceIndex reused; then
+               the chain walk against its plain version on the captured
+               first launches of the main and recover paths, timed
   4 extend     ops/ydrop_pallas.py's own path, with every counter
                reset before it: prepare_anchor_batch, then
                ydrop_extend_batch (K3) and ydrop_band_batch (K3b) on
@@ -101,6 +117,19 @@ XDROP_EDGES = ([f"n{v}" for v in (0, 1, 31, 32, 33, 63, 64, 65, 127, 128,
                                   129, 255, 256, 257)]
                + [f"drop_at_{v}" for v in (31, 32, 63, 128, 256)]
                + [f"tie_{v}" for v in (32, 128, 256)])
+# the chain walk's edge cases (chain_edge_inputs): chains of one hit;
+# chains of cap - 1 and cap hits, and one of cap + 1 (unconverged, the
+# walk stops at cap + 1 as the lockstep loop does); HASH_INACTIVE heads;
+# recover collisions, two true diagonals on one hash; a long dead-hit
+# sentinel chain; a launch with no live hit; and a random mixture
+CHAIN_EDGES = ["single", "cap_edges", "cap_over", "inactive_head",
+               "collisions", "dead_tail", "empty", "mixed"]
+
+
+# the index phase: a synthetic target the size of a human chromosome
+# such as chr19 or chr20, with lowercase and N runs, indexed with the
+# default 12of19 seed
+INDEX_BP = 64_000_000
 
 
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes per
@@ -121,8 +150,13 @@ WALK_STEP_CYCLES = 30
 #   K1: the same 16 plus 4 to compose the link byte = 20
 #   K2: score lookup, add, running max, drop compare, stop test = 5
 #   traceback: byte load, 3 mask tests, 2 coordinate steps = 6
+#   chain walk (per walked hit, simple mode): live test, compare, max,
+#           select = 4
 OPS_PER_CELL = {"ydrop_chunk": 20, "xdrop_scan": 5, "ydrop_traceback": 6,
-                "ydrop_wavefront": 16, "ydrop_band": 16}
+                "ydrop_wavefront": 16, "ydrop_band": 16, "resolve_chains": 4}
+# The floor of a chain walk: its longest chain, one dependent step (a
+# compare and a select on the carried extent) of about 8 cycles a hit.
+CHAIN_STEP_CYCLES = 8
 
 
 def say(phase, **kw):
@@ -443,6 +477,73 @@ def xdrop_edge_inputs(case):
              n), 300, expect)
 
 
+def chain_edge_inputs(case, cap):
+    """One CHAIN_EDGES case as a launch's hash-sorted hits: numpy
+    (key_s, extent_s, start2_s, diag_s, live_s) per hit and the 64K
+    states (de, da) the launch starts from; `cap` is the walk's chain
+    cap.  Live hits are sorted by hash, each chain's start2 ascending
+    (the query order a stable sort keeps), and the dead hits follow
+    with key 65536."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n_dead = {"dead_tail": 5000, "empty": 1000}.get(case, 50)
+    if case == "single":
+        hashes = rng.choice(65536, 3000, replace=False)
+        lens = np.ones(3000, np.int64)
+    elif case == "cap_edges":
+        hashes, lens = np.array([5, 900, 40000]), np.array([cap - 1, cap, 3])
+    elif case == "cap_over":
+        hashes, lens = np.array([17, 300]), np.array([cap + 1, 10])
+    elif case == "empty":
+        hashes, lens = np.zeros(0, np.int64), np.zeros(0, np.int64)
+    else:
+        n = {"mixed": 2000}.get(case, 200)
+        hashes = rng.choice(65536, n, replace=False)
+        lens = np.minimum(rng.geometric(0.05, n), min(200, cap))
+    order = np.argsort(hashes)
+    hashes, lens = hashes[order], lens[order]
+    live_n = int(lens.sum())
+    key = np.concatenate([np.repeat(hashes, lens),
+                          np.full(n_dead, 65536)]).astype(np.int32)
+    live = key < 65536
+    start2 = rng.integers(0, 1_000_000, key.shape[0])
+    first = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    for f, m in zip(first, lens):
+        start2[f: f + m] = np.sort(start2[f: f + m])
+    extent = start2 + 19 + rng.integers(-5, 3000, key.shape[0])
+    # a true diagonal with the hit's hash: h + 65536 k
+    wrap = rng.integers(-2, 3, key.shape[0])
+    if case == "collisions":
+        wrap = rng.integers(0, 2, key.shape[0])  # two diagonals a hash
+    diag = np.where(live, key + 65536 * wrap, rng.integers(-9, 9, key.shape))
+    de = np.where(rng.random(65536) < 0.3, -1,
+                  rng.integers(0, 1_000_000, 65536))
+    da = np.arange(65536) + 65536 * rng.integers(-2, 3, 65536)
+    if case == "inactive_head":
+        de[hashes] = -1
+    if case == "collisions":
+        de[hashes] = rng.integers(0, 1_000_000, len(hashes))
+        da[hashes] = hashes + 65536 * rng.integers(0, 2, len(hashes))
+    assert live.sum() == live_n
+    return tuple(a.astype(np.int32) for a in (key, extent, start2, diag)) \
+        + (live, de.astype(np.int32), da.astype(np.int32))
+
+
+def chain_walk_args(arrays, recover):
+    """resolve_chains' arguments from chain_edge_inputs' arrays (numpy
+    or tensors on one device), as hit_launch makes them."""
+    import torch
+    from lastz_tpu_torch.ops.hitgen import chain_bounds
+    key, extent, start2, diag, live, de, da = (
+        a if torch.is_tensor(a) else torch.from_numpy(a) for a in arrays)
+    seg_start = torch.cat([key.new_ones(1, dtype=torch.bool),
+                           key[1:] != key[:-1]])
+    starts, lens = chain_bounds(seg_start, live)
+    at = torch.clamp(key, max=65535).long()
+    if recover:
+        return (starts, lens, extent, start2, de[at], live, diag, da[at])
+    return starts, lens, extent, start2, torch.clamp(de[at], min=0), live
+
+
 def k2_setup(dev):
     """K2's table shape: the arguments of xdrop_scan for 2M hits of a
     4 Mbp pair, half on the conserved diagonal (long scans inside its
@@ -629,6 +730,77 @@ def check_traceback(dev):
             {"chain_floor_ms": floor})
 
 
+def check_chain_edges(dev):
+    """The chain walk against its plain version on CHAIN_EDGES, both
+    modes, at the real chain cap."""
+    from lastz_tpu_torch.ops.hitgen import RESOLVE_CHAIN_CAP
+    from lastz_tpu_torch.ops.resolve_cuda import resolve_chains
+    err = 0
+    for case in CHAIN_EDGES:
+        arrays = chain_edge_inputs(case, RESOLVE_CHAIN_CAP)
+        for recover in (False, True):
+            what = f"chain walk {case} recover={recover}"
+            cpu = chain_walk_args(arrays, recover)
+            got = resolve_chains(*(a.to(dev) for a in cpu))
+            want = resolve_chains(*cpu)
+            if got[-1] != want[-1]:
+                raise AssertionError(f"{what}: converged differs")
+            err = max(err, same([a.cpu() for a in got[:-1]], want[:-1], what))
+    say("kernels", kernel="resolve_chains", edge_cases=2 * len(CHAIN_EDGES),
+        equal=True)
+    return err
+
+
+def chain_walk_floor_ms(max_len):
+    """The floor of a chain walk: its longest chain's hits, one dependent
+    step (CHAIN_STEP_CYCLES) each."""
+    return 1e3 * max_len * CHAIN_STEP_CYCLES / CLOCK_HZ
+
+
+def check_chain_launch(launch):
+    """The chain walk against its plain version on the card, on one
+    launch's arguments captured from a path (chain_capture); returns
+    (max_abs_err, kernel ms, plain ms, bytes, walked hits, extra)."""
+    import torch
+    from lastz_tpu_torch.ops import hitgen
+    from lastz_tpu_torch.ops.resolve_cuda import resolve_chains
+    a, kw = launch
+    recover = "diag_s" in kw
+    starts, lens, extent, start2, de0, live = a
+    got = resolve_chains(*a, **kw)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    if recover:
+        want = hitgen._resolve_chains_recover(extent, start2, kw["diag_s"],
+                                              de0, kw["da0_s"], starts, lens,
+                                              live)
+    else:
+        want = hitgen._resolve_chains(extent, start2, de0, starts, lens, live)
+    torch.cuda.synchronize()
+    plain_ms = 1000 * (time.monotonic() - t0)
+    if got[-1] != want[-1]:
+        raise AssertionError(f"chain walk recover={recover}: converged "
+                             f"differs")
+    err = same(got[:-1], want[:-1], f"chain walk, a launch, recover={recover}")
+    ms = cuda_ms(lambda: resolve_chains(*a, **kw), 5)
+    walk = torch.clamp(lens.long(), max=hitgen.RESOLVE_CHAIN_CAP + 1)
+    walked = int(walk.sum())
+    max_len = int(walk.max())
+    # read: each walked hit's extent, start2 and live byte (recover: its
+    # diag too), each chain's start, length and head state(s); written:
+    # every hit's alive byte and de_before (recover: each chain's pair)
+    per_hit = 9 + 4 * recover
+    n_bytes = (walked * per_hit + extent.shape[0] * 5
+               + starts.shape[0] * (12 + 12 * recover))
+    floor = chain_walk_floor_ms(max_len)
+    say("kernels", kernel="resolve_chains", recover=recover,
+        hits=extent.shape[0], walked=walked,
+        chains=int((lens > 0).sum()), max_chain=max_len, ms=ms,
+        plain_ms=plain_ms, chain_floor_ms=floor, equal=True)
+    return err, ms, plain_ms, n_bytes, walked, {"max_chain": max_len,
+                                                "chain_floor_ms": floor}
+
+
 def anchor_batches(pair):
     """K3_SHAPE's anchors, points on the pair's conserved segments, as
     prepare_anchor_batch gives them in both orientations: {reversed_:
@@ -731,16 +903,41 @@ def phase_kernels(card, pair):
         extra = more[0] if more else {}
         if "refs" in extra:
             refs[name] = extra.pop("refs")
-        bound_ms, bound_by = bound(name, n_bytes, cells)
-        # no single PyTorch call computes any of these functions
-        rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None, **extra))
-        say("kernels", kernel=name, tolerance=0, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bytes=n_bytes, cells=cells,
-            bound_ms=bound_ms, bound_by=bound_by, card=card)
-    return rows, refs
+        rows.append(kernel_row(card, name, src, repl, err, ms, plain_ms,
+                               n_bytes, cells, extra))
+    # the chain walk's edge cases now; its row, on launches of the main
+    # and recover paths, after those paths (chain_row)
+    chain_err = check_chain_edges(dev)
+    return rows, refs, chain_err
+
+
+def kernel_row(card, name, src, repl, err, ms, plain_ms, n_bytes, cells,
+               extra):
+    """One kernel's entry of the kernels line, printed as it is made."""
+    bound_ms, bound_by = bound(name, n_bytes, cells)
+    say("kernels", kernel=name, tolerance=0, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bytes=n_bytes, cells=cells, bound_ms=bound_ms,
+        bound_by=bound_by, card=card)
+    # no single PyTorch call computes any of these functions
+    return dict(name=name, route="cuda", source=src, replaces=repl,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, **extra)
+
+
+def chain_row(card, edge_err, main_launch, recover_launch):
+    """The chain walk's entry: timed on a main-path launch (simple mode),
+    and held against its plain version on it, on a recover-path launch
+    and on the edge cases."""
+    err, ms, plain_ms, n_bytes, walked, extra = check_chain_launch(
+        main_launch)
+    r_err, r_ms, r_plain, *_, r_extra = check_chain_launch(recover_launch)
+    extra.update(recover_ms=r_ms, recover_plain_ms=r_plain,
+                 recover_max_chain=r_extra["max_chain"])
+    return kernel_row(card, "resolve_chains",
+                      "lastz_tpu_torch/csrc/resolve_chains.cu",
+                      "lastz_tpu/ops/hitgen.py:345",
+                      max(err, r_err, edge_err), ms, plain_ms, n_bytes,
+                      walked, extra)
 
 
 # ---------------------------------------------------------------------------
@@ -809,21 +1006,30 @@ def write_pair(tdir, pair):
 
 def counters():
     """Every kernel wrapper of the port, by kernel name."""
-    from lastz_tpu_torch.ops import xdrop_cuda, ydrop_cuda, ydrop_pallas
+    from lastz_tpu_torch.ops import (resolve_cuda, xdrop_cuda, ydrop_cuda,
+                                     ydrop_pallas)
     return {"ydrop_chunk": ydrop_cuda.ydrop_chunk,
             "xdrop_scan": xdrop_cuda.xdrop_scan,
             "ydrop_traceback": ydrop_cuda.traceback_mega,
             "ydrop_wavefront": ydrop_pallas.ydrop_extend_batch,
-            "ydrop_band": ydrop_pallas.ydrop_band_batch}
+            "ydrop_band": ydrop_pallas.ydrop_band_batch,
+            "resolve_chains": resolve_cuda.resolve_chains}
 
 
 def reset_counts():
+    from lastz_tpu_torch.ops import resolve_cuda
     for fn in counters().values():
         fn.launches = 0
+    resolve_cuda.resolve_chains.recover_launches = 0
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in counters().items()}
+    """Each kernel's launches; resolve_chains_recover counts those of
+    resolve_chains in recover mode."""
+    from lastz_tpu_torch.ops import resolve_cuda
+    return dict({k: fn.launches for k, fn in counters().items()},
+                resolve_chains_recover=(
+                    resolve_cuda.resolve_chains.recover_launches))
 
 
 @contextlib.contextmanager
@@ -867,37 +1073,38 @@ def launch_ms(events):
 # the main path's kernels, by the C entry point each one launches
 MAIN_ENTRIES = {"ydrop_chunk": "ydrop_chunk_launch",
                 "xdrop_scan": "xdrop_scan_launch",
-                "ydrop_traceback": "ydrop_traceback_launch"}
+                "ydrop_traceback": "ydrop_traceback_launch",
+                "resolve_chains": "resolve_chains_launch"}
 # upper edges of the buckets of K2's consumed cells on the main path
 CONSUMED_BUCKETS = (32, 64, 256)
 
 
 class _Seen:
-    """A kernel wrapper's stand-in: calls it, then see(args, result).
-    Its `launches` is the wrapper's own count, which the wrapper bumps
-    through its module's name for it."""
+    """A kernel wrapper's stand-in: calls it, then see(args, kwargs,
+    result).  Its other attributes are the wrapper's own, read and set
+    through it: a wrapper bumps its counts through its module's name
+    for it, which is this stand-in while it is in place."""
 
     def __init__(self, own, see):
-        self.own, self.see = own, see
+        object.__setattr__(self, "own", own)
+        object.__setattr__(self, "see", see)
 
     def __call__(self, *a, **kw):
         out = self.own(*a, **kw)
-        self.see(a, out)
+        self.see(a, kw, out)
         return out
 
-    @property
-    def launches(self):
-        return self.own.launches
+    def __getattr__(self, name):
+        return getattr(self.own, name)
 
-    @launches.setter
-    def launches(self, n):
-        self.own.launches = n
+    def __setattr__(self, name, value):
+        setattr(self.own, name, value)
 
 
 @contextlib.contextmanager
 def observed(module, name, see):
-    """Calls see(args, result) after every call of module.name inside
-    the block."""
+    """Calls see(args, kwargs, result) after every call of module.name
+    inside the block."""
     own = getattr(module, name)
     setattr(module, name, _Seen(own, see))
     try:
@@ -917,7 +1124,7 @@ def main_path_probes():
     from lastz_tpu_torch.ops import xdrop_cuda
     probes = {"hist": [], "walk_max": []}
 
-    def see_k2(a, out):
+    def see_k2(a, kw, out):
         rows = []
         for n, (consumed, _, _) in zip(a[6:8], out):
             c = consumed[n > 0]
@@ -930,7 +1137,7 @@ def main_path_probes():
             rows.append(torch.stack(row))
         probes["hist"].append(torch.stack(rows))
 
-    def see_walk(a, out):
+    def see_walk(a, kw, out):
         probes["walk_max"].append(torch.where(a[7], out[1], 0).max())
 
     with contextlib.ExitStack() as stack:
@@ -939,7 +1146,46 @@ def main_path_probes():
         stack.enter_context(observed(xdrop_cuda, "xdrop_scan", see_k2))
         stack.enter_context(observed(ydrop_device, "traceback_mega",
                                      see_walk))
+        probes["chain_launch"] = stack.enter_context(chain_capture())
         yield probes
+
+
+@contextlib.contextmanager
+def chain_capture():
+    """Keeps the arguments of the first chain-walk launch inside the
+    block; yields the list that holds them as (args, kwargs)."""
+    from lastz_tpu_torch.ops import resolve_cuda
+    first = []
+
+    def see(a, kw, out):
+        if not first:
+            first.append((a, kw))
+    with observed(resolve_cuda, "resolve_chains", see):
+        yield first
+
+
+@contextlib.contextmanager
+def table_watch():
+    """Around a pipeline run: the position tables its device build made
+    (yielded list), with DevicePositionTable's host-fetch count at 0
+    before it."""
+    import lastz_tpu_torch.pipeline as tpipe
+    from lastz_tpu_torch.index.postable import DevicePositionTable
+    DevicePositionTable.host_fetches = 0
+    built = []
+    with observed(tpipe, "build_seed_position_table_device",
+                  lambda a, kw, out: built.append(out)):
+        yield built
+
+
+def require_in_place(built, what):
+    """The run built one DevicePositionTable and never fetched it."""
+    from lastz_tpu_torch.index.postable import DevicePositionTable
+    if len(built) != 1 or not isinstance(built[0], DevicePositionTable):
+        raise AssertionError(f"{what}: no DevicePositionTable was built")
+    if DevicePositionTable.host_fetches:
+        raise AssertionError(f"{what}: the device table was fetched to the "
+                             f"host {DevicePositionTable.host_fetches} times")
 
 
 def main_path_report(probes, launches, card):
@@ -975,71 +1221,161 @@ def require_launched(launches, path):
             raise AssertionError(f"{k} was not launched on its path")
 
 
-# the port's CLI with neither JAX nor lastz_tpu importable
+# the port's CLI with neither JAX nor lastz_tpu importable, run
+# sys.argv[2] times in one process (the output of the last run kept);
+# the card's context and the kernel library are made before the first,
+# so that no timer of a job holds them
 _ALONE = r"""
-import sys
+import contextlib, io, sys
 sys.modules["jax"] = None
 sys.modules["lastz_tpu"] = None
 sys.path.insert(0, sys.argv[1])
+import torch
+torch.zeros(1, device="cuda")
 from lastz_tpu_torch import cli
-rc = cli.main(sys.argv[2:])
+from lastz_tpu_torch.kernels import build
+build.load()
+for _ in range(int(sys.argv[2]) - 1):
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(sys.argv[3:]) == 0
+rc = cli.main(sys.argv[3:])
 assert not any(m == "lastz_tpu" or m.startswith("lastz_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 sys.exit(rc)
 """
 
 
-def run_alone(tdir, argv, out_path):
-    """The port's CLI from a copy of lastz_tpu_torch with nothing else
-    of the repo beside it; returns its wall seconds."""
-    alone = os.path.join(tdir, "alone")
-    shutil.copytree(os.path.join(ROOT, "lastz_tpu_torch"),
-                    os.path.join(alone, "lastz_tpu_torch"),
-                    ignore=shutil.ignore_patterns("__pycache__"))
+def stats_timers(text):
+    """The last `wall clock:` section of --stats output, {bucket:
+    seconds}."""
+    timers = {}
+    on = False
+    for line in text.splitlines():
+        if line.startswith("wall clock:"):
+            on = True
+            timers = {}
+        elif on:
+            m = re.fullmatch(r"\s*(.+?): ([0-9.]+)s", line)
+            if m:
+                timers[m.group(1)] = float(m.group(2))
+            on = bool(m)
+    return timers
+
+
+def run_alone(tdir, argv, out_path, src=ROOT, name="alone", runs=1):
+    """The port's CLI from a copy of src's lastz_tpu_torch with nothing
+    else of the repo beside it (and this tree's built libraries, so
+    that an older copy with the same native sources builds none), run
+    `runs` times in one process; returns its wall seconds and the last
+    run's --stats timers."""
+    alone = os.path.join(tdir, name)
+    if not os.path.isdir(alone):
+        shutil.copytree(os.path.join(src, "lastz_tpu_torch"),
+                        os.path.join(alone, "lastz_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        built = os.path.join(ROOT, "lastz_tpu_torch", "build")
+        if os.path.isdir(built):
+            shutil.copytree(built,
+                            os.path.join(alone, "lastz_tpu_torch", "build"),
+                            dirs_exist_ok=True)
     env = {k: v for k, v in os.environ.items()
            if k != "PYTHONPATH" and not k.startswith("LASTZ_TPU_")}
     env["LASTZ_TORCH_DEVICE"] = "cuda"
     t0 = time.monotonic()
     with open(out_path, "w") as f:
-        proc = subprocess.run([sys.executable, "-c", _ALONE, alone, *argv],
+        proc = subprocess.run([sys.executable, "-c", _ALONE, alone,
+                               str(runs), *argv],
                               stdout=f, stderr=subprocess.PIPE, text=True,
                               env=env, cwd=alone)
     if proc.returncode != 0:
-        raise RuntimeError(f"the port alone exited {proc.returncode}: "
+        raise RuntimeError(f"the port from {src} exited {proc.returncode}: "
                            f"{proc.stderr[-2000:]}")
-    return time.monotonic() - t0
+    return time.monotonic() - t0, stats_timers(proc.stderr)
 
 
-def phase_main(card, pair):
-    """Returns each kernel's launch count in the port's main-path run,
-    the mean device ms a launch there of K1, K2 and the walk, and the
-    walk's summed chain floor there."""
+def run_port(argv, out_path, *contexts):
+    """The port's CLI in this process, its standard output in out_path,
+    with every launch counter and device_search.runs at 0 before it and
+    `contexts` entered around it.  Returns (wall s, launches, the run's
+    stats, device searches, what each context yielded)."""
     import torch
     import lastz_tpu_torch.stats as tstats
     from lastz_tpu_torch import cli
     from lastz_tpu_torch.search import device_hits
+    os.environ["LASTZ_TORCH_DEVICE"] = "cuda"
+    reset_counts()
+    device_hits.device_search.runs = 0
+    err = io.StringIO()
+    t0 = time.monotonic()
+    with open(out_path, "w") as f, contextlib.ExitStack() as stack:
+        stack.enter_context(contextlib.redirect_stdout(f))
+        stack.enter_context(contextlib.redirect_stderr(err))
+        got = [stack.enter_context(c) for c in contexts]
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_counts()
+    if rc != 0:
+        raise RuntimeError(f"port CLI {argv} exited {rc}: "
+                           f"{err.getvalue()[-2000:]}")
+    return (wall, launches, tstats.current, device_hits.device_search.runs,
+            got)
+
+
+def run_host(argv, out_path):
+    """lastz_tpu's CLI, the reference, in a child process with no
+    LASTZ_TPU_* switch (its host path); returns its wall seconds."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("LASTZ_TPU_")}
+    t0 = time.monotonic()
+    with open(out_path, "w") as f:
+        proc = subprocess.run(
+            [sys.executable, "-m", "lastz_tpu.cli", *argv], stdout=f,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"lastz_tpu host run exited "
+                           f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return time.monotonic() - t0
+
+
+def read_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def require_seed_on_device(st, seed_runs, what):
+    """The run's seed stage went through device_search only."""
+    if seed_runs <= 0:
+        raise AssertionError(f"{what}: the seed stage did not run through "
+                             f"lastz_tpu_torch's device_search")
+    if st.extra.get("seed host searches"):
+        raise AssertionError(f"{what}: {st.extra['seed host searches']} "
+                             f"seed host searches")
+
+
+def csr_uploads():
+    """Position tables that device.carry_state digested and uploaded."""
+    from lastz_tpu_torch import device
+    return sum(1 for k in device._CACHE if k[0] == "csr")
+
+
+def phase_main(card, pair, parent=None):
+    """Returns each kernel's launch count in the port's main-path run,
+    the mean device ms a launch there of its kernels, the walk's summed
+    chain floor there, and the arguments of its first chain-walk
+    launch.  With `parent` (a checkout of an older commit), its port
+    also runs alone on the pair and its timers are printed beside
+    this one's."""
+    from lastz_tpu_torch import device
     with tempfile.TemporaryDirectory() as tdir:
         t0 = time.monotonic()
         tp, qp, lt, lq = write_pair(tdir, pair)
         say("main", pair_bp=[lt, lq], write_s=round(time.monotonic() - t0, 3))
         argv = [tp, qp, "--stats"]
-        os.environ["LASTZ_TORCH_DEVICE"] = "cuda"
-        reset_counts()
-        device_hits.device_search.runs = 0
         port_out = os.path.join(tdir, "port.lav")
-        err = io.StringIO()
-        t0 = time.monotonic()
-        with open(port_out, "w") as f, contextlib.redirect_stdout(f), \
-                contextlib.redirect_stderr(err), main_path_probes() as probes:
-            rc = cli.main(argv)
-        torch.cuda.synchronize()
-        port_s = time.monotonic() - t0
-        launches = read_counts()
-        st = tstats.current
-        if rc != 0:
-            raise RuntimeError(f"port CLI exited {rc}: "
-                               f"{err.getvalue()[-2000:]}")
-        seed_runs = device_hits.device_search.runs
+        device._CACHE.clear()
+        port_s, launches, st, seed_runs, (probes, built) = run_port(
+            argv, port_out, main_path_probes(), table_watch())
         say("main", run="lastz_tpu_torch.cli", wall_s=port_s,
             launches=launches, device_seed_searches=seed_runs,
             gapped_anchors=st.gapped_anchors, gapped_device=st.gapped_device,
@@ -1047,42 +1383,196 @@ def phase_main(card, pair):
             alignments=st.alignments,
             timers={k: round(v, 3) for k, v in st.timers.items()},
             extra=st.extra, card=card)
+        say("main", pos_table_s=st.timers.get("pos table"),
+            hitgen_setup_s=st.timers.get("hitgen setup"),
+            csr_uploads=csr_uploads(), card=card,
+            note="the parent's are in PERF.md section 5, or in the "
+                 "parent line with --parent")
+        require_in_place(built, "main path")
+        if csr_uploads():
+            raise AssertionError("main path: the device table was digested "
+                                 "and uploaded again")
         require_launched(launches, tuple(MAIN_ENTRIES))
         main_ms, walk_floor = main_path_report(probes, launches, card)
         if st.gapped_device <= 0:
             raise AssertionError("no anchor was extended on the device")
-        if seed_runs <= 0:
-            raise AssertionError("the seed stage did not run through "
-                                 "lastz_tpu_torch's device_search")
-        env = {k: v for k, v in os.environ.items()
-               if not k.startswith("LASTZ_TPU_")}
+        require_seed_on_device(st, seed_runs, "main path")
+        if launches["resolve_chains_recover"]:
+            raise AssertionError("main path: a recover-mode chain walk")
         host_out = os.path.join(tdir, "host.lav")
-        t0 = time.monotonic()
-        with open(host_out, "w") as f:
-            proc = subprocess.run(
-                [sys.executable, "-m", "lastz_tpu.cli", *argv], stdout=f,
-                stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
-        host_s = time.monotonic() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"lastz_tpu host run exited "
-                               f"{proc.returncode}: {proc.stderr[-2000:]}")
-        with open(port_out, "rb") as f:
-            a = f.read()
-        with open(host_out, "rb") as f:
-            b = f.read()
+        host_s = run_host(argv, host_out)
+        a, b = read_bytes(port_out), read_bytes(host_out)
         say("main", run="lastz_tpu.cli host", wall_s=host_s,
             lav_bytes=[len(a), len(b)], lav_equal=a == b, card=card)
         if a != b:
             raise AssertionError("port LAV differs from lastz_tpu host LAV")
         alone_out = os.path.join(tdir, "alone.lav")
-        alone_s = run_alone(tdir, argv, alone_out)
-        with open(alone_out, "rb") as f:
-            c = f.read()
+        alone_s, alone_t = run_alone(tdir, argv, alone_out)
+        c = read_bytes(alone_out)
         say("main", run="lastz_tpu_torch.cli alone", wall_s=alone_s,
-            lav_bytes=len(c), lav_equal=a == c, card=card)
+            lav_bytes=len(c), lav_equal=a == c, timers=alone_t, card=card)
         if a != c:
             raise AssertionError("the port alone wrote other LAV")
-    return launches, main_ms, walk_floor
+        if parent:
+            # in turns, parent, this, this, parent: each a process that
+            # runs the job twice, the second run's timers kept
+            for who in ("parent", "alone", "alone", "parent"):
+                out = os.path.join(tdir, f"{who}.warm.lav")
+                wall, timers = run_alone(
+                    tdir, argv, out, src=parent if who == "parent" else ROOT,
+                    name=who, runs=2)
+                d = read_bytes(out)
+                say("main", run=f"{who} lastz_tpu_torch.cli, second run in "
+                    f"one process", src=parent if who == "parent" else ".",
+                    wall_s=wall, lav_equal=a == d, timers=timers,
+                    pos_table_s=timers.get("pos table"),
+                    hitgen_setup_s=timers.get("hitgen setup"), card=card)
+                if a != d:
+                    raise AssertionError(f"{who}: the port wrote other LAV")
+    chain_launch = probes["chain_launch"]
+    if not chain_launch:
+        raise AssertionError("main path: no chain walk was captured")
+    return launches, main_ms, walk_floor, chain_launch[0]
+
+
+# the seed modes beside the main path: (name, options, chain-walk mode)
+SEED_MODES = [("recover", ["--recoverseeds"], "recover"),
+              ("overweight", ["--word=20"], "simple"),
+              ("capsule", [], "simple")]
+
+
+def phase_modes(card, pair):
+    """--recoverseeds, --word=20 (an overweight seed) and a capsule
+    (--writecapsule by the port, then --targetcapsule twice in this
+    process) on the main path's pair, each with every counter at 0
+    before it: LAV byte-equal to lastz_tpu's CLI, the seed stage on the
+    device only, launches of K2 and of the chain walk in its mode; the
+    capsule's second run reuses the first one's DeviceIndex.  Returns
+    each phase's launches and the first recover-mode chain-walk
+    launch's arguments."""
+    from lastz_tpu_torch import device
+    from lastz_tpu_torch.index import capsule
+    out = {}
+    recover_launch = None
+    with tempfile.TemporaryDirectory() as tdir:
+        tp, qp, _, _ = write_pair(tdir, pair)
+        cap = os.path.join(tdir, "t.cap")
+        t0 = time.monotonic()
+        run_port([tp, f"--writecapsule={cap}"], os.path.join(tdir, "w.txt"))
+        say("capsule", written_bytes=os.path.getsize(cap),
+            wall_s=time.monotonic() - t0, card=card)
+        for name, opts, mode in SEED_MODES:
+            argv = ([f"--targetcapsule={cap}", qp] if name == "capsule"
+                    else [tp, qp]) + opts
+            runs = 2 if name == "capsule" else 1
+            device._CACHE.clear()
+            indexes = []
+            see_index = observed(capsule, "open_capsule_to_device",
+                                 lambda a, kw, res: indexes.append(res[2]))
+            port_out = [os.path.join(tdir, f"{name}{i}.lav")
+                        for i in range(runs)]
+            with see_index:
+                for i in range(runs):
+                    port_s, launches, st, seed_runs, (chain, _) = run_port(
+                        argv, port_out[i], chain_capture(), table_watch())
+                    what = f"{name} run {i}"
+                    require_seed_on_device(st, seed_runs, what)
+                    require_launched(launches, ("xdrop_scan", "resolve_chains"))
+                    want = launches["resolve_chains"] * (mode == "recover")
+                    if launches["resolve_chains_recover"] != want:
+                        raise AssertionError(f"{what}: chain walks in the "
+                                             f"wrong mode: {launches}")
+                    if mode == "recover" and recover_launch is None:
+                        recover_launch = chain[0]
+                    say(name, run=i, options=opts, wall_s=port_s, launches=launches,
+                        device_seed_searches=seed_runs, hsps=st.hsps,
+                        gapped_device=st.gapped_device,
+                        timers={k: round(v, 3) for k, v in st.timers.items()},
+                        csr_uploads=csr_uploads(), card=card)
+            if name == "capsule":
+                if len(indexes) != 2 or indexes[0] is not indexes[1]:
+                    raise AssertionError("capsule: the second run did not "
+                                         "reuse the memoized DeviceIndex")
+                from lastz_tpu_torch.index.postable import DevicePositionTable
+                if csr_uploads() or DevicePositionTable.host_fetches:
+                    raise AssertionError("capsule: the device index was "
+                                         "uploaded again or fetched")
+            host_out = os.path.join(tdir, f"{name}.host.lav")
+            host_s = run_host(argv, host_out)
+            b = read_bytes(host_out)
+            same_lav = [read_bytes(p) == b for p in port_out]
+            say(name, run="lastz_tpu.cli host", wall_s=host_s,
+                lav_bytes=len(b), lav_equal=same_lav, card=card)
+            if not all(same_lav) or b"a {" not in b:
+                raise AssertionError(f"{name}: port LAV differs from "
+                                     f"lastz_tpu's (or holds no alignment)")
+            out[name] = launches
+    if recover_launch is None:
+        raise AssertionError("recover: no chain walk was captured")
+    return out, recover_launch
+
+
+def phase_index(card, pair):
+    """The device build of the position table against the host build,
+    on the main path's target and on an INDEX_BP target with lowercase
+    and N runs, default 12of19 seed: equal csr_start, csr_pos[:n] and
+    n_entries; both times and the device memory peak."""
+    import torch
+    from lastz_tpu_torch.core.encoding import UPPER_NUC_TO_BITS
+    from lastz_tpu_torch.core.seeds import SEED_12OF19, parse_seed
+    from lastz_tpu_torch.index.postable import (
+        build_seed_position_table, build_seed_position_table_device)
+    dev = torch.device("cuda")
+    seed = parse_seed(SEED_12OF19, with_trans=1)
+    t0 = time.monotonic()
+    big = make_index_target()
+    say("index", made_bp=len(big), make_s=time.monotonic() - t0)
+    # warm-up: the sort and scan kernels' first launches
+    build_seed_position_table_device(big[:100_000], 0, 0, UPPER_NUC_TO_BITS,
+                                     seed, device=dev)
+    for name, t in (("pair target", pair[0]), ("index target", big)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        got = build_seed_position_table_device(t, 0, 0, UPPER_NUC_TO_BITS,
+                                               seed, device=dev)
+        torch.cuda.synchronize()
+        dev_s = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        t0 = time.monotonic()
+        host = build_seed_position_table(t, 0, 0, UPPER_NUC_TO_BITS, seed)
+        host_s = time.monotonic() - t0
+        n = got.n_entries
+        equal = (n == len(host.csr_pos)
+                 and np.array_equal(got.dev_csr_start.cpu().numpy(),
+                                    host.csr_start)
+                 and np.array_equal(got.dev_csr_pos[:n].cpu().numpy(),
+                                    host.csr_pos.astype(np.int64)))
+        say("index", target=name, bp=len(t), entries=n,
+            words=got.num_words, device_build_s=dev_s, host_build_s=host_s,
+            device_peak_bytes=peak,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            equal=equal, card=card)
+        if not equal:
+            raise AssertionError(f"index {name}: device build differs from "
+                                 f"the host build")
+        del got, host
+
+
+def make_index_target():
+    """INDEX_BP of random ACGT with lowercase runs (soft-masked repeats)
+    over about a third of it and N runs (gaps), from its own seed."""
+    rng = np.random.default_rng(64)
+    n = INDEX_BP
+    t = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].copy()
+    for a, m in zip(rng.integers(0, n - 10_000, 6000),
+                    rng.integers(100, 7000, 6000)):
+        t[a: a + m] |= 0x20
+    for a, m in zip(rng.integers(0, n - 60_000, 300),
+                    rng.integers(10, 50_000, 300)):
+        t[a: a + m] = ord("N")
+    return t
 
 
 def phase_extend(card, pair, refs):
@@ -1124,8 +1614,13 @@ def phase_extend(card, pair, refs):
     return launches
 
 
-def main():
+def main(argv=None):
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a checkout of an older commit: its "
+                    "port also runs the main path, alone, beside this one")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1134,19 +1629,26 @@ def main():
     pair = make_pair()
     say("pair", bp=[len(pair[0]), len(pair[1])], segments=len(pair[2]),
         make_s=round(time.monotonic() - t0, 3))
-    rows, refs = phase_kernels(card, pair)
-    launches, main_ms, walk_floor = phase_main(card, pair)
+    rows, refs, chain_err = phase_kernels(card, pair)
+    phase_index(card, pair)
+    launches, main_ms, walk_floor, main_chain = phase_main(card, pair,
+                                                           args.parent)
+    mode_launches, recover_chain = phase_modes(card, pair)
+    rows.append(chain_row(card, chain_err, main_chain, recover_chain))
     launches.update({k: v for k, v in phase_extend(card, pair, refs).items()
                      if k in ("ydrop_wavefront", "ydrop_band")})
     # main_path_ms: the mean device ms of a launch on the main path (K1,
-    # K2, the walk); the walk's chain floors are at the table's shape and
-    # summed over its main-path launches
+    # K2, the walk, the chain walk); the walk's chain floors are at the
+    # table's shape and summed over its main-path launches
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in main_ms:
             r["main_path_ms"] = main_ms[r["name"]]
         if r["name"] == "ydrop_traceback":
             r["main_path_chain_floor_ms"] = walk_floor
+        if r["name"] in ("xdrop_scan", "resolve_chains"):
+            r["launches_by_seed_mode"] = {
+                k: v[r["name"]] for k, v in mode_launches.items()}
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

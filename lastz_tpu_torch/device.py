@@ -5,12 +5,13 @@ The device comes from LASTZ_TORCH_DEVICE: `cuda` (the default) or
 falls back to the CPU quietly.  On `cpu` every kernel wrapper runs its
 plain PyTorch version, which is how the tests run the port.
 
-`carry_state` is the one place where `lastz_tpu`'s host-built numpy
-state becomes device tensors: the CSR seed position table, the compact
+`carry_state` is the one place where the host-built numpy state
+becomes device tensors: the CSR seed position table, the compact
 alphabet and the SEQ_PAD-padded sequence codes
 (lastz_tpu/search/device_hits.py:93-161).  Uploads are cached by a
 digest of their content, never by id() or data_ptr(): a freed array's
-id can be reused by the other strand's sequence.
+id can be reused by the other strand's sequence.  A position table
+built on the device is already there and is used in place.
 """
 
 from __future__ import annotations
@@ -82,8 +83,16 @@ def upload_codes(seq, code_map, device, pad: int = 0) -> torch.Tensor:
 
 
 def upload_position_table(pt, device) -> dict:
-    """The CSR arrays of a host-built PositionTable as int32 tensors
-    (alive as uint8, or None when every entry is alive)."""
+    """The CSR arrays of a PositionTable as int32 tensors on `device`
+    (alive as uint8, or None when every entry is alive).  A table built
+    on a device (index/postable.DevicePositionTable) is taken as it
+    is, with neither a digest nor a fetch of its arrays, while it is
+    unchanged since its build (lastz_tpu/search/device_hits.py:93-116);
+    a host table is uploaded once and cached by content."""
+    if getattr(pt, "in_place", False):
+        return dict(csr_start=pt.dev_csr_start.to(device),
+                    csr_pos=pt.dev_csr_pos.to(device), alive=None,
+                    adj_start=int(pt.adj_start), step=int(pt.step))
     key = ("csr", content_key(pt.csr_start, pt.csr_pos, pt.alive),
            str(device))
 

@@ -7,9 +7,9 @@ enumeration order is observable in output (it sets HSP discovery
 order), so it is part of this module's contract.
 
 Here the index is a CSR over sorted packed words, built with O(n log n)
-vectorized numpy (and, on device, jnp.sort/searchsorted): positions are
-stored ascending per word, and `positions_for(word)` returns them
-reversed, which is exactly the reference's last/prev walk.
+vectorized numpy (and, on a device, torch.sort and a scatter-add):
+positions are stored ascending per word, and `positions_for(word)`
+returns them reversed, which is exactly the reference's last/prev walk.
 
 Position values are word END positions (one past the last base,
 origin-0 byte index + 1), stored divided by `step` relative to
@@ -257,6 +257,146 @@ def build_seed_position_table(
         csr_pos=sorted_pos,
         csr_resolve=csr_resolve,
     )
+
+
+class DevicePositionTable(PositionTable):
+    """Position table whose CSR is torch tensors on a device, built there
+    (port of lastz_tpu/index/postable.py:262-307).  The device search
+    reads dev_csr_start and dev_csr_pos in place; the host arrays
+    csr_start and csr_pos are fetched only when a host tier asks for
+    them, and `host_fetches` counts those fetches over every table.
+
+    dev_csr_pos is longer than n_entries: its tail holds the positions
+    of the windows that were not indexed (sorted behind every word).
+    `host_start`/`host_pos`, where given, are host copies that are
+    already at hand (a capsule's arrays); they are served without a
+    fetch and do not count as a change of the table."""
+
+    host_fetches = 0
+
+    def __init__(self, seed, step, start, end, adj_start, dev_csr_start,
+                 dev_csr_pos, n_entries, csr_resolve=None, host_start=None,
+                 host_pos=None):
+        self.seed = seed
+        self.step = step
+        self.start = start
+        self.end = end
+        self.adj_start = adj_start
+        self.dev_csr_start = dev_csr_start
+        self.dev_csr_pos = dev_csr_pos
+        self.n_entries = int(n_entries)
+        self.csr_resolve = csr_resolve
+        self.alive = None
+        self._host_start = host_start
+        self._host_pos = host_pos
+        self._assigned = False
+
+    @property
+    def in_place(self) -> bool:
+        """True while the device tensors are the table: no entry killed
+        (alive) and no host array assigned since the build."""
+        return self.alive is None and not self._assigned
+
+    @property
+    def num_words(self) -> int:
+        return self.dev_csr_start.shape[0] - 1
+
+    @property
+    def csr_start(self):
+        if self._host_start is None:
+            DevicePositionTable.host_fetches += 1
+            self._host_start = self.dev_csr_start.cpu().numpy()
+        return self._host_start
+
+    @csr_start.setter
+    def csr_start(self, v):
+        self._host_start = v
+        self._assigned = True
+
+    @property
+    def csr_pos(self):
+        if self._host_pos is None:
+            DevicePositionTable.host_fetches += 1
+            self._host_pos = self.dev_csr_pos[: self.n_entries].cpu().numpy()
+        return self._host_pos
+
+    @csr_pos.setter
+    def csr_pos(self, v):
+        self._host_pos = v
+        self._assigned = True
+
+
+def build_seed_position_table_device(
+    seq_v: np.ndarray,
+    start: int,
+    end: int,
+    char_to_bits: np.ndarray,
+    seed: Seed,
+    step: int = 1,
+    *,
+    device,
+) -> DevicePositionTable:
+    """build_seed_position_table on `device` (port of
+    lastz_tpu/index/postable.py:310-336): the target's codes go up as
+    int8, and word packing, selection, the stable sort and the CSR
+    counts run there.  Entries of a word stay in ascending position
+    order, as in the host build."""
+    import torch
+
+    from ..ops.hitgen import pack_query_words
+
+    if step < 1:
+        raise ValueError("step must be >= 1")
+    if end == 0:
+        end = len(seq_v)
+    if end <= start:
+        raise ValueError("interval is void")
+    adj_start = start - (start % step)
+    nw = 1 << seed.weight
+    codes = torch.from_numpy(
+        char_to_bits[seq_v[start:end]].astype(np.int8)).to(device)
+    if codes.shape[0] < seed.length:
+        csr_start = torch.zeros(nw + 1, dtype=torch.int32, device=device)
+        csr_pos = torch.zeros(0, dtype=torch.int32, device=device)
+        n = 0
+    else:
+        packed, valid = pack_query_words(codes, seed.bit_map, seed.length,
+                                         seed.bits_per_base)
+        csr_start, csr_pos, n = build_csr(
+            packed, valid, nw=nw, step=step, length=seed.length,
+            start=start, adj=adj_start)
+    return DevicePositionTable(
+        seed=seed, step=step, start=start, end=end, adj_start=adj_start,
+        dev_csr_start=csr_start, dev_csr_pos=csr_pos, n_entries=n)
+
+
+def build_csr(packed, valid, *, nw: int, step: int, length: int,
+              start: int, adj: int):
+    """The CSR of the windows' packed words (port of _build_csr_impl,
+    lastz_tpu/index/postable.py:367-385): the windows not indexed get
+    the key nw, so they sort behind every word, and a stable sort keeps
+    each word's positions ascending.  Returns (csr_start (nw+1,) int32,
+    csr_pos (num,) int32, n_entries)."""
+    import torch
+    dev = packed.device
+    num = packed.shape[0]
+    big = start + length + num >= (1 << 31)
+    end_pos = start + length + torch.arange(
+        num, dtype=torch.int64 if big else torch.int32, device=dev)
+    sel = valid
+    if step != 1:
+        sel = sel & (end_pos % step == 0)
+    stored = torch.div(end_pos - adj, step,
+                       rounding_mode="floor").to(torch.int32)
+    key = torch.where(sel, packed, nw).to(torch.int32)
+    _, order = torch.sort(key, stable=True)
+    csr_pos = stored[order]
+    cnt = torch.zeros(nw, dtype=torch.int32, device=dev).scatter_add_(
+        0, torch.clamp(key, max=nw - 1).to(torch.int64),
+        sel.to(torch.int32))
+    csr_start = torch.cat([cnt.new_zeros(1),
+                           torch.cumsum(cnt, 0, dtype=torch.int32)])
+    return csr_start, csr_pos, int(sel.sum())
 
 
 def build_quantum_seed_position_table(

@@ -48,6 +48,8 @@ _SIGNATURES = {
                           _P, _P, _P, _P],
     "ydrop_wavefront_launch": [_P] * 5 + [_I] * 3 + [_P],
     "ydrop_band_launch": [_P] * 5 + [_I] * 3 + [_P],
+    "resolve_chains_launch": [_P, _P, _I] + [_P] * 6 + [_I] * 3
+                             + [_P] * 5,
 }
 
 

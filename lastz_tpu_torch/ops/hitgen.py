@@ -1,8 +1,8 @@
-"""Device seed-hit generation, simple hit mode: the SEED->HSP stage of
-the reference (private_hit_search + find_table_matches + the simple
-hit processor + x-drop extension, seed_search.c:464-810,1056,2528) as
-a few torch programs, so the raw candidate hit list never crosses to
-the host.  Port of lastz_tpu/ops/hitgen.py.
+"""Device seed-hit generation: the SEED->HSP stage of the reference
+(private_hit_search + find_table_matches + the simple and recoverable
+hit processors + x-drop extension, seed_search.c:464-1420,2528) as a
+few torch programs and two kernels, so the raw candidate hit list never
+crosses to the host.  Port of lastz_tpu/ops/hitgen.py.
 
   pack_query_words   query 2-bit codes -> packed seed words (:66)
   pair_counts        CSR probe counts and their prefix sum (:95)
@@ -10,9 +10,13 @@ the host.  Port of lastz_tpu/ops/hitgen.py.
   xdrop_scan_plain   the gap-free x-drop scan of _xdrop_all (:182),
                      the CPU path of ops/xdrop_cuda.xdrop_scan and the
                      oracle of csrc/xdrop_scan.cu
+  chain_bounds, _resolve_chains, _resolve_chains_recover
+                     the diagonal-hash chain walks (:345-468), the CPU
+                     path of ops/resolve_cuda.resolve_chains and the
+                     oracle of csrc/resolve_chains.cu
   hit_launch         one fixed-budget slice of the candidate hits
-                     (:482-654) without the recover and overweight
-                     (resolve) branches
+                     (:482-654), simple or recover hit mode, with the
+                     overweight seeds' resolving-bit test
 
 Seed words are int64 (torch on the CPU has no `>>` on uint32); scores
 and positions stay int32 where JAX keeps them int32.
@@ -155,48 +159,114 @@ def xdrop_scan_plain(seq1p, seq2p, subflat, K: int, p1, p2, n,
 
 
 # ---------------------------------------------------------------------------
-# diagonal-hash chain resolution
+# diagonal-hash chain resolution: plain versions of csrc/resolve_chains.cu
 # ---------------------------------------------------------------------------
 
+HASH_INACTIVE = -1
 
-def _resolve_chains(extent_s, pos2mL_s, de0_s, seg_start, live_s):
-    """The simple processor's drop protocol (process_for_simple_hit,
-    seed_search.c:1056-1198) over hash-sorted hits, all chains in
-    lockstep, one chain position per step (hitgen.py:345-402).  Chains
-    are walked longest first, so the chains still running at step r
-    are a prefix of that order and a step needs no masking.  Returns
-    (alive_s, de_before_s, converged); converged is False when a chain
-    is longer than RESOLVE_CHAIN_CAP."""
-    dev = extent_s.device
-    H = extent_s.shape[0]
+
+def chain_bounds(seg_start, live_s):
+    """(starts, lens), each (DIAG_HASH_SIZE + 1,) int32: the first
+    sorted index and the length of every chain of the hash-sorted hits,
+    chains in sorted order, empty ones padded with start H and length
+    0.  The dead hits sort into one sentinel chain after every hash;
+    its length is 0 too (hitgen.py:366-376)."""
+    dev = seg_start.device
+    H = seg_start.shape[0]
     NCH = DIAG_HASH_SIZE + 1
     iota = torch.arange(H, dtype=_I64, device=dev)
     seg_id = torch.cumsum(seg_start.to(_I64), 0) - 1
     starts = torch.full((NCH,), H, dtype=_I64, device=dev).scatter_reduce(
         0, seg_id, iota, "amin")
     lens = torch.bincount(seg_id, minlength=NCH)
-    # the dead-hit tail sorts into one sentinel chain; skip it (every
-    # hit of a chain that starts live is live)
     lens = torch.where(live_s[torch.clamp(starts, max=H - 1)], lens, 0)
-    lens, by_len = torch.sort(lens, descending=True)
-    nz = int((lens > 0).sum())
-    lens_h = lens[:nz].cpu()
+    return starts.to(_I32), lens.to(_I32)
+
+
+def _walk_order(lens):
+    """Chains by length, longest first, and how many still run at each
+    step: a lockstep walk of step r touches a prefix of that order."""
+    lens_s, by_len = torch.sort(lens.to(_I64), descending=True)
+    nz = int((lens_s > 0).sum())
+    lens_h = lens_s[:nz].cpu()
     max_len = int(lens_h[0]) if nz else 0
-    st = starts[by_len[:nz]]
-    cur = de0_s[st].clone()
-    alive = torch.ones(H, dtype=torch.bool, device=dev)
-    de_before = torch.zeros(H, dtype=_I32, device=dev)
-    # chains still running at step r: lens_h is non-increasing
     running = torch.searchsorted(-lens_h, -torch.arange(
         min(max_len, RESOLVE_CHAIN_CAP + 1)), side="left").tolist()
+    return by_len[:nz], running, max_len
+
+
+def _resolve_chains(extent_s, pos2mL_s, de0_s, starts, lens, live_s):
+    """The simple processor's drop protocol (process_for_simple_hit,
+    seed_search.c:1056-1198) over hash-sorted hits, all chains in
+    lockstep, one chain position per step (port of
+    lastz_tpu/ops/hitgen.py::_resolve_chains_dev, :345-402).  de0_s is
+    the chain's diagonal extent at its head, already activated (>= 0).
+    A chain walks at most RESOLVE_CHAIN_CAP + 1 positions.  Returns
+    (alive_s, de_before_s, converged); converged is False when a chain
+    is longer than RESOLVE_CHAIN_CAP."""
+    dev = extent_s.device
+    H = extent_s.shape[0]
+    ch, running, max_len = _walk_order(lens)
+    st = starts[ch].to(_I64)
+    cur = de0_s[st].to(_I64)
+    alive = torch.ones(H, dtype=torch.bool, device=dev)
+    de_before = torch.zeros(H, dtype=_I32, device=dev)
     for r, nr in enumerate(running):
         idx = st[:nr] + r
         c = cur[:nr]
         ok = c <= pos2mL_s[idx]
-        de_before[idx] = c
+        de_before[idx] = c.to(_I32)
         alive[idx] = ok
-        cur[:nr] = torch.where(ok, torch.maximum(c, extent_s[idx]), c)
+        cur[:nr] = torch.where(ok & live_s[idx],
+                               torch.maximum(c, extent_s[idx].to(_I64)), c)
     return alive, de_before, max_len <= RESOLVE_CHAIN_CAP
+
+
+def _resolve_chains_recover(extent_s, start2_s, diag_s, de0_s, da0_s,
+                            starts, lens, live_s):
+    """Recover mode's drop protocol (process_for_recoverable_hit,
+    seed_search.c:1221-1420; port of
+    lastz_tpu/ops/hitgen.py::_resolve_chains_recover_dev, :408-468):
+    a hit on a hashed diagonal that was extended past it is dropped
+    only when the extension's true diagonal (da) is its own; a hit on
+    another diagonal of the same hash is kept, with an unblocked left
+    extension (de_before = 0).  de0_s/da0_s are the raw states at the
+    chain's head (HASH_INACTIVE kept).  Returns (alive_s, de_before_s,
+    fin_de, fin_da, converged); fin_de/fin_da are each chain's state
+    after the launch, (DIAG_HASH_SIZE + 1,) in chain order."""
+    dev = extent_s.device
+    H = extent_s.shape[0]
+    # an empty chain's state is read at the last hit, as the loop reads it
+    head = torch.clamp(starts.to(_I64), max=H - 1)
+    fin_de = de0_s[head].to(_I32)
+    fin_da = da0_s[head].to(_I32)
+    ch, running, max_len = _walk_order(lens)
+    st = starts[ch].to(_I64)
+    cur = fin_de[ch].to(_I64)
+    curd = fin_da[ch].to(_I64)
+    alive = torch.ones(H, dtype=torch.bool, device=dev)
+    de_before = torch.zeros(H, dtype=_I32, device=dev)
+    for r, nr in enumerate(running):
+        idx = st[:nr] + r
+        c, d = cur[:nr], curd[:nr]
+        t = start2_s[idx]
+        e = extent_s[idx].to(_I64)
+        dg = diag_s[idx].to(_I64)
+        lv = live_s[idx]
+        inactive = c == HASH_INACTIVE
+        c0 = torch.where(inactive, 0, c)
+        d0 = torch.where(inactive, dg, d)
+        covered = (c0 > t) & ~inactive
+        unb = covered & (d0 != dg)
+        ok = ~(covered & (d0 == dg))
+        de_before[idx] = torch.where(unb, 0, c0).to(_I32)
+        alive[idx] = ok
+        upd = ok & (e > c0)
+        cur[:nr] = torch.where(lv, torch.where(upd, e, c0), c)
+        curd[:nr] = torch.where(lv, torch.where(upd, dg, d0), d)
+    fin_de[ch] = cur.to(_I32)
+    fin_da[ch] = curd.to(_I32)
+    return alive, de_before, fin_de, fin_da, max_len <= RESOLVE_CHAIN_CAP
 
 
 # ---------------------------------------------------------------------------
@@ -205,21 +275,29 @@ def _resolve_chains(extent_s, pos2mL_s, de0_s, seg_start, live_s):
 
 
 def hit_launch(seq1p, seq2p, subflat, csr_pos, alive_tab, cum, ends,
-               karr, de, hit_base: int, total: int, chunk_lo: int,
+               karr, de, da, hit_base: int, total: int, chunk_lo: int,
                adj_start: int, step: int, seed_len: int, thresh: int,
-               band: int, len1: int, len2: int, *, x_drop: int,
+               band: int, len1: int, len2: int, csr_resolve=None,
+               q_resolve=None, budgets=None, *, x_drop: int,
                no_extend: bool, self_compare: bool, same_strand: bool,
                use_thresh: bool, has_alive: bool, K: int, nprobe: int,
+               recover: bool = False, has_resolve: bool = False,
                H: int = HIT_BUDGET, out_cap: int = OUT_CAP):
     """One budgeted slice [hit_base, hit_base+H) of a chunk's candidate
-    hits (hitgen.py:482-654, simple hit mode).  karr is the slice's
-    pair index per hit (expand_chunk).  Returns (de', out (9, out_cap)
-    int32, scalars (6,) int64).
+    hits (hitgen.py:482-654).  karr is the slice's pair index per hit
+    (expand_chunk).  `da` is the diagActual state, read and advanced
+    only with `recover` (--recoverseeds).  With `has_resolve`
+    (overweight seeds) a hit also needs its resolving bits: csr_resolve
+    (int32 per index entry, its bits unsigned) against q_resolve (int64
+    per query window) within budgets[probe] mismatches.  Returns (de',
+    da', out (9, out_cap) int32, scalars (6,) int64); de' and da' are
+    new tensors, or de and da themselves when the launch is discarded.
 
     out rows: pos1, pos2, qidx (absolute query window index), lscore,
     lstart, rscore, rstop, de_before, bind.
     scalars: n_keep, n_live, n_dropped, n_alive, converged, 0.
     """
+    from .resolve_cuda import resolve_chains
     from .xdrop_cuda import xdrop_scan
 
     dev = karr.device
@@ -233,6 +311,17 @@ def hit_launch(seq1p, seq2p, subflat, csr_pos, alive_tab, cum, ends,
     csr_idx = torch.clamp(ends[k] - 1 - within, 0, csr_pos.shape[0] - 1)
     pos1 = adj_start + step * csr_pos[csr_idx].to(_I64)
     pos2 = chunk_lo + seed_len + pidx
+    if has_resolve:
+        # overweight seeds: the demoted (resolving) bits of the query
+        # window against the entry's, within the probe's leftover
+        # transition budget (seed_search.c:878-980); a 32-bit SWAR
+        # popcount on int64, the top byte masked where uint32 wraps
+        x = ((csr_resolve[csr_idx].to(_I64) & 0xFFFFFFFF)
+             ^ q_resolve[torch.clamp(pidx, 0, q_resolve.shape[0] - 1)])
+        x = x - ((x >> 1) & 0x55555555)
+        x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+        mism = ((((x + (x >> 4)) & 0x0F0F0F0F) * 0x01010101) >> 24) & 0xFF
+        live &= mism <= budgets[k % nprobe]
     if has_alive:
         live &= alive_tab[csr_idx] != 0
     if self_compare:
@@ -267,21 +356,38 @@ def hit_launch(seq1p, seq2p, subflat, csr_pos, alive_tab, cum, ends,
     # hash-chain resolution over the whole launch
     key = torch.where(live, h, DIAG_HASH_SIZE)  # dead hits: own chain
     key_s, order = torch.sort(key, stable=True)
-    starts = torch.cat([key_s.new_ones(1, dtype=torch.bool),
-                        key_s[1:] != key_s[:-1]])
-    de0 = torch.clamp(de[torch.clamp(key_s, max=DIAG_HASH_SIZE - 1)],
-                      min=0)  # HASH_INACTIVE (-1) activates to 0
-    alive_s, de_before_s, converged = _resolve_chains(
-        extent[order], (pos2 - seed_len)[order], de0, starts, live[order])
+    seg_start = torch.cat([key_s.new_ones(1, dtype=torch.bool),
+                           key_s[1:] != key_s[:-1]])
+    live_s = live[order]
+    starts, lens = chain_bounds(seg_start, live_s)
+    key_c = torch.clamp(key_s, max=DIAG_HASH_SIZE - 1)
+    if recover:
+        alive_s, de_before_s, fin_de, fin_da, converged = resolve_chains(
+            starts, lens, extent[order], (pos2 - seed_len)[order],
+            de[key_c], live_s, diag_s=diag[order], da0_s=da[key_c])
+        # each chain's end state back at its hash (hitgen.py:596-602)
+        valid = lens > 0
+        at = key_s[starts[valid].to(_I64)]
+        de_adv = de.clone()
+        da_adv = da.clone()
+        de_adv[at] = fin_de[valid]
+        da_adv[at] = fin_da[valid]
+    else:
+        # HASH_INACTIVE (-1) activates to 0
+        alive_s, de_before_s, converged = resolve_chains(
+            starts, lens, extent[order], (pos2 - seed_len)[order],
+            torch.clamp(de[key_c], min=0), live_s)
     inv = torch.empty_like(order)
     inv[order] = i
     alive = alive_s[inv] & live
     de_before = de_before_s[inv].to(_I64)
-    # advance the diagonal-extent state; kept only when the launch is
-    # not discarded (overflow or unconverged), below
-    de_adv = de.scatter_reduce(
-        0, torch.where(live, h, 0),
-        torch.where(alive, extent, -1).to(de.dtype), "amax")
+    if not recover:
+        # advance the diagonal-extent state; kept only when the launch
+        # is not discarded (overflow or unconverged), below
+        de_adv = de.scatter_reduce(
+            0, torch.where(live, h, 0),
+            torch.where(alive, extent, -1).to(de.dtype), "amax")
+        da_adv = da
 
     if no_extend:
         cand = alive
@@ -305,4 +411,6 @@ def hit_launch(seq1p, seq2p, subflat, csr_pos, alive_tab, cum, ends,
     n_alive = int(alive.sum())
     scalars = torch.tensor([n_keep, n_live, n_live - n_alive, n_alive,
                             int(converged), 0])
-    return (de if discard else de_adv), out, scalars
+    if discard:
+        return de, da, out, scalars
+    return de_adv, da_adv, out, scalars

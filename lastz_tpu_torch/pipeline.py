@@ -21,7 +21,8 @@ from .config import (
 from .core.encoding import NUC_TO_BITS, UPPER_NUC_TO_BITS
 from .core.scoring import new_dna_score_set, masked_score_set
 from .core.seeds import parse_seed, SEED_12OF19
-from .index.postable import build_seed_position_table
+from .index.postable import (build_seed_position_table,
+                             build_seed_position_table_device)
 from .io.sequence import SequenceFile, Sequence
 from .out.dispatcher import OutputDispatcher
 from .search.engine import SeedSearchEngine, HitProcessorParams
@@ -360,10 +361,17 @@ class Pipeline:
         if target is None and cfg.read_capsule:
             # target + index come from the capsule; its seed/step
             # replace the defaults (lastz.c:8807-8813)
-            from .index.capsule import open_capsule_file
-            target, pt = open_capsule_file(
-                cfg.capsule_filename,
-                writable_target=cfg.dynamic_masking > 0)
+            if cfg.dynamic_masking == 0:
+                # the capsule's index goes to the device once and is
+                # reused across queries and runs (capsule.c:6-15)
+                from .index.capsule import open_capsule_to_device
+                target, pt, self.device_index = open_capsule_to_device(
+                    cfg.capsule_filename, self.device)
+            else:
+                from .index.capsule import open_capsule_file
+                target, pt = open_capsule_file(
+                    cfg.capsule_filename,
+                    writable_target=cfg.dynamic_masking > 0)
             pt.seed.with_trans = cfg.with_trans
             cfg.seed = pt.seed
             cfg.step = pt.step
@@ -680,10 +688,20 @@ class Pipeline:
         self._chore = None
 
     def _build_position_table(self, target):
-        """Build the target index on the host (reference
-        build_seed_position_table, pos_table.c:118); the device search
-        uploads it once per run (device.carry_state)."""
+        """Build the target index (reference build_seed_position_table,
+        pos_table.c:118) on the device where the device search reads it
+        in place, else on the host (the gate of lastz_tpu/pipeline.py:
+        789-798).  A failed device build raises."""
         cfg = self.cfg
+        if (cfg.seed.type != "R" and not cfg.seed.rev_comp
+                and cfg.seed.weight <= 26
+                and not cfg.write_capsule and not cfg.show_pos_table
+                and cfg.word_count_limit == 0 and cfg.word_count_keep == 0
+                and cfg.dynamic_masking == 0
+                and len(target.v) < (1 << 31)):
+            return build_seed_position_table_device(
+                target.v, 0, len(target.v), UPPER_NUC_TO_BITS, cfg.seed,
+                cfg.step, device=self.device)
         return build_seed_position_table(
             target.v, 0, len(target.v), UPPER_NUC_TO_BITS,
             cfg.seed, cfg.step)

@@ -1,12 +1,14 @@
 """Device-resident seed search: drives ops/hitgen.py so that the raw
 candidate hit list never crosses to the host (reference
-seed_hit_search, seed_search.c:322-810 + the simple processor
-:1056-1198 + xdrop_extend_seed_hit :2528).
+seed_hit_search, seed_search.c:322-980 + the simple and recoverable
+processors :1056-1420 + xdrop_extend_seed_hit :2528).
 
 Port of lastz_tpu/search/device_hits.py (supported :49, device_search
 :193-513).  The position-table CSR and both sequences' padded codes
-come from device.carry_state (uploaded once, cached by content); the
-64K diagonal-extent state stays on the device for the whole search.
+come from device.carry_state (a table built on the device is used in
+place; host arrays are uploaded once, cached by content); the 64K
+diagonal-extent state (and recover mode's diagActual) stays on the
+device for the whole search.
 
 Launch plan: query windows go in fixed-size chunks; each chunk's
 candidate total is counted on the device (one scalar fetched) and cut
@@ -30,23 +32,33 @@ from ..core.scoring import entropy
 from ..device import carry_state
 from ..ops.hitgen import (HIT_BUDGET, OUT_CAP, expand_chunk, hit_launch,
                           pack_query_words, pair_counts)
-from .batched import _probe_xors
+from .batched import _probe_budgets, _probe_xors
 from .batched import supported as _batched_supported
 
 _DEF_PCHUNK = 1 << 20
 
 
 def supported(engine) -> bool:
-    """The configurations this slice runs on the device: simple hit
-    mode, plain seeds, x-drop or no extension, int32-safe scores and
-    lengths.  Recover and overweight (R) seeds go to the host engines
-    (search/engine.py), like twins and everything the batched gate
-    declines."""
+    """The configurations the device runs (lastz_tpu/search/
+    device_hits.py:49-82): simple and recover hit modes, plain and
+    overweight (R) seeds, x-drop or no extension, int32-safe scores and
+    lengths.  Twins and reverse-complement seeds go to the host engines
+    (search/engine.py), like everything the batched gate declines."""
     if not _batched_supported(engine):
         return False
-    if engine.hit_mode != "simple":
+    if engine.hit_mode not in ("simple", "recover"):
+        # twins need the 256K seed-hit queue with global aging
+        # (search/twins.py)
         return False
-    if engine.seed.rev_comp or engine.seed.type == "R":
+    if engine.hit_mode == "recover" and engine.hp.gf_extend != GFEX_XDROP:
+        # as the batched gate: without an extension the scalar
+        # processor's diagEnd/diagActual updates differ
+        return False
+    if engine.seed.rev_comp:
+        return False
+    if engine.seed.type == "R" and getattr(
+            engine.pt, "csr_resolve", None) is None:
+        # overweight seeds need the index's packed resolving words
         return False
     hp = engine.hp
     sub = engine._sub
@@ -63,6 +75,21 @@ def supported(engine) -> bool:
     if t.t == "S" and abs(t.s) >= (1 << 30):
         return False
     return True
+
+
+def _csr_resolve_on(pt, device):
+    """The table's per-entry resolving words on `device` as int32 (their
+    bits read unsigned), uploaded once per table: the cache entry holds
+    the host array itself, so a rebuilt array is never served the old
+    upload (lastz_tpu/search/device_hits.py:259-268)."""
+    cached = getattr(pt, "_hitgen_res_dev", None)
+    if cached is None or cached[0] is not pt.csr_resolve \
+            or cached[1] != device:
+        words = np.ascontiguousarray(pt.csr_resolve).astype(np.uint32)
+        cached = (pt.csr_resolve, device,
+                  torch.from_numpy(words.view(np.int32)).to(device))
+        pt._hitgen_res_dev = cached
+    return cached[2]
 
 
 def device_search(engine, device, start: int = 0, end: int = 0):
@@ -96,9 +123,21 @@ def device_search(engine, device, start: int = 0, end: int = 0):
         subflat_d = state["subsmall_t"].reshape(-1)
         xors_d = torch.from_numpy(_probe_xors(seed)).to(device)
         nprobe = xors_d.shape[0]
-        packed, valid = pack_query_words(
-            torch.from_numpy(q_codes).to(device), seed.bit_map, L,
-            seed.bits_per_base)
+        qdev = torch.from_numpy(q_codes).to(device)
+        packed, valid = pack_query_words(qdev, seed.bit_map, L,
+                                         seed.bits_per_base)
+        # overweight seeds: the demoted (resolving) bits of each query
+        # window, the index's per-entry resolving words and the
+        # per-probe transition budgets (seeds.c:8-127)
+        has_resolve = seed.type == "R"
+        qres = csr_resolve_d = budgets_d = None
+        if has_resolve:
+            resolve_map = tuple((int(src), i)
+                                for i, src in enumerate(seed.resolve_bits))
+            qres, _ = pack_query_words(qdev, resolve_map, L,
+                                       seed.bits_per_base)
+            csr_resolve_d = _csr_resolve_on(engine.pt, device)
+            budgets_d = torch.from_numpy(_probe_budgets(seed)).to(device)
         num_w = end - start - L + 1
         PCHUNK = min(_DEF_PCHUNK, max(1 << 14, (1 << 24) // nprobe),
                      1 << max(8, (num_w - 1).bit_length()))
@@ -107,6 +146,8 @@ def device_search(engine, device, start: int = 0, end: int = 0):
         if pad:
             packed = torch.cat([packed, packed.new_zeros(pad)])
             valid = torch.cat([valid, valid.new_zeros(pad)])
+            if has_resolve:
+                qres = torch.cat([qres, qres.new_zeros(pad)])
         st.words_in_queries += int(valid.sum())
 
     csr_start = state["csr_start"]
@@ -121,6 +162,8 @@ def device_search(engine, device, start: int = 0, end: int = 0):
                              ).tolist()
 
     de = torch.full((65536,), -1, dtype=torch.int32, device=device)
+    da = torch.zeros(65536, dtype=torch.int32, device=device)
+    recover = engine.hit_mode == "recover"
 
     # launch budgets: modest sizes for small runs
     H = HIT_BUDGET
@@ -140,7 +183,7 @@ def device_search(engine, device, start: int = 0, end: int = 0):
         same_strand=bool(engine.same_strand), use_thresh=use_thresh,
         has_alive=alive_t is not None, K=K, nprobe=nprobe,
         x_drop=int(hp.x_drop) if not no_extend else 0, H=H,
-        out_cap=out_cap)
+        out_cap=out_cap, recover=recover, has_resolve=has_resolve)
     common = (state["seq1p"], state["seq2p"], subflat_d,
               state["csr_pos"], alive_t)
 
@@ -222,11 +265,13 @@ def device_search(engine, device, start: int = 0, end: int = 0):
         while ranges:
             lo, hi = ranges.pop(0)
             with st.time("hitgen device"):
-                de2, out, scalars = hit_launch(
-                    *common, cum, ends, karr[lo: lo + H], de, lo, hi,
+                de2, da2, out, scalars = hit_launch(
+                    *common, cum, ends, karr[lo: lo + H], de, da, lo, hi,
                     chunk_lo, int(state["adj_start"]),
                     int(state["step"]), L, thresh, band, len(seq1),
-                    len(seq2), **kw)
+                    len(seq2), csr_resolve_d,
+                    qres[c * PCHUNK: (c + 1) * PCHUNK]
+                    if has_resolve else None, budgets_d, **kw)
                 n_keep = int(scalars[0])
                 converged = bool(scalars[4])
                 out_np = out[:, :min(n_keep, out_cap)].cpu().numpy()
@@ -239,7 +284,7 @@ def device_search(engine, device, start: int = 0, end: int = 0):
                         "device_search: one hit cannot be resolved")
                 ranges[:0] = [(lo, mid), (mid, hi)]
                 continue
-            de = de2
+            de, da = de2, da2
             st.raw_seed_hits += int(scalars[1])
             st.hash_dropped_hits += int(scalars[2])
             st.ungapped_extensions += int(scalars[3])

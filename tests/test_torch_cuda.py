@@ -5,7 +5,8 @@ card.  This file imports no JAX, so it also runs where JAX is absent:
 
 Each test skips where torch finds no card (a CUDA kernel has no CPU
 mode).  The tolerance is exact equality: integer DP state, link bytes,
-x-drop results and the (best, row, column) of K3 and K3b."""
+x-drop results, the (best, row, column) of K3 and K3b, the chain
+walk's outputs and the device-built position table."""
 
 import numpy as np
 import pytest
@@ -18,7 +19,8 @@ from lastz_tpu_torch.ops import ydrop_pallas as tp
 from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
 from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega, ydrop_chunk
 
-from chip_smoke import (WALK_EDGE_CAPS, WALK_EDGE_GEOMETRY, XDROP_EDGES,
+from chip_smoke import (CHAIN_EDGES, WALK_EDGE_CAPS, WALK_EDGE_GEOMETRY,
+                        XDROP_EDGES, chain_edge_inputs, chain_walk_args,
                         walk_inputs, xdrop_edge_inputs)
 from test_hitgen import _related_pair
 
@@ -269,3 +271,47 @@ def test_cuda_xdrop_edges(case):
             assert torch.equal(a.cpu(), b)
     for side in want:
         assert tuple(int(a[0]) for a in side) == expect
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recover", [False, True], ids=["simple", "recover"])
+@pytest.mark.parametrize("case", CHAIN_EDGES)
+def test_cuda_chain_walk_edges(case, recover):
+    """csrc/resolve_chains.cu against its plain version at the real
+    chain cap, both modes."""
+    from lastz_tpu_torch.ops.hitgen import RESOLVE_CHAIN_CAP
+    from lastz_tpu_torch.ops.resolve_cuda import resolve_chains
+    dev = _card()
+    arrays = chain_edge_inputs(case, RESOLVE_CHAIN_CAP)
+    cpu = chain_walk_args(arrays, recover)
+    n = resolve_chains.launches
+    got = resolve_chains(*(a.to(dev) for a in cpu))
+    torch.cuda.synchronize()
+    assert resolve_chains.launches == n + 1
+    want = resolve_chains(*cpu)
+    assert got[-1] == want[-1] == (case != "cap_over")
+    for a, b in zip(got[:-1], want[:-1]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern,step", [("1110100110010101111", 1),
+                                          ("11111111111", 3)])
+def test_cuda_device_table_matches_host(pattern, step):
+    """The position table built on the card equals the host build."""
+    from lastz_tpu_torch.core.encoding import UPPER_NUC_TO_BITS
+    from lastz_tpu_torch.core.seeds import parse_seed
+    from lastz_tpu_torch.index.postable import (
+        build_seed_position_table, build_seed_position_table_device)
+    dev = _card()
+    s1, _ = _related_pair(200_000, seed=9)
+    s1[1000:1300] = ord("N")
+    s1[5000:9000] += 32  # lowercase
+    seed = parse_seed(pattern)
+    host = build_seed_position_table(s1, 0, 0, UPPER_NUC_TO_BITS, seed, step)
+    got = build_seed_position_table_device(s1, 0, 0, UPPER_NUC_TO_BITS, seed,
+                                           step, device=dev)
+    assert got.dev_csr_start.is_cuda and got.n_entries == len(host.csr_pos)
+    assert np.array_equal(got.csr_start, host.csr_start)
+    assert np.array_equal(got.csr_pos.astype(np.int64),
+                          host.csr_pos.astype(np.int64))

@@ -30,8 +30,9 @@ from lastz_tpu_torch.search import device_hits
 from lastz_tpu_torch.search.engine import HitProcessorParams as THitParams
 from lastz_tpu_torch.search.engine import SeedSearchEngine
 
-from chip_smoke import XDROP_EDGES, xdrop_edge_inputs
-from test_hitgen import SCALAR, _collect, _related_pair
+from chip_smoke import (CHAIN_EDGES, XDROP_EDGES, chain_edge_inputs,
+                        chain_walk_args, xdrop_edge_inputs)
+from test_hitgen import SCALAR, _collect, _collect_seed, _related_pair
 
 CPU = torch.device("cpu")
 
@@ -93,10 +94,55 @@ def test_xdrop_plain_edges_match_jax(case):
         assert tuple(int(a[0]) for a in got) == expect, step
 
 
-def _launch_inputs(s1, s2, seed_str, trans):
+# the chain cap of the edge cases on the CPU: the lockstep walks of
+# both packages at their own cap of 16384 take minutes here
+SMALL_CAP = 64
+
+
+@pytest.mark.parametrize("recover", [False, True], ids=["simple", "recover"])
+@pytest.mark.parametrize("case", CHAIN_EDGES)
+def test_chain_walk_matches_jax(case, recover, monkeypatch):
+    """The plain chain walks (_resolve_chains, _resolve_chains_recover)
+    against lastz_tpu's device while_loops on the edge cases of
+    chip_smoke.CHAIN_EDGES, both at a chain cap of SMALL_CAP."""
+    monkeypatch.setattr(jh, "RESOLVE_CHAIN_CAP", SMALL_CAP)
+    monkeypatch.setattr(th, "RESOLVE_CHAIN_CAP", SMALL_CAP)
+    arrays = chain_edge_inputs(case, SMALL_CAP)
+    args = chain_walk_args(arrays, recover)
+    key, extent, start2, diag, live = arrays[:5]
+    seg = np.concatenate([[True], key[1:] != key[:-1]])
+    J = jnp.asarray
+    if recover:
+        starts, lens, _, _, de0, _, _, da0 = args
+        ref = jh._resolve_chains_recover_dev(
+            J(extent), J(start2), J(diag), J(de0.numpy()), J(da0.numpy()),
+            J(seg), J(live))
+        got = th._resolve_chains_recover(
+            extent_s=args[2], start2_s=args[3], diag_s=args[6], de0_s=de0,
+            da0_s=da0, starts=starts, lens=lens, live_s=args[5])
+        alive, de_before, fin_de, fin_da, conv = got
+        valid = np.asarray(ref[4])
+        assert np.array_equal(valid, (lens > 0).numpy())
+        # per-chain end states, where the scatter-back reads them
+        assert np.array_equal(np.asarray(ref[2])[valid], fin_de.numpy()[valid])
+        assert np.array_equal(np.asarray(ref[3])[valid], fin_da.numpy()[valid])
+        ref = (ref[0], ref[1], ref[5])
+    else:
+        starts, lens, _, _, de0, _ = args
+        ref = jh._resolve_chains_dev(J(extent), J(start2), J(de0.numpy()),
+                                     J(seg), J(live))
+        alive, de_before, conv = th._resolve_chains(
+            args[2], args[3], de0, starts, lens, args[5])
+    assert np.array_equal(np.asarray(ref[0]), alive.numpy())
+    assert np.array_equal(np.asarray(ref[1]), de_before.numpy())
+    assert bool(ref[2]) == conv == (case != "cap_over")
+    if case not in ("empty", "single"):
+        assert not alive.numpy()[live].all()  # the walk dropped hits
+
+
+def _launch_inputs(s1, s2, seed, H=4096):
     """Seed-stage inputs for one launch over the whole query, built by
     both packages from the same carried state (device.carry_state)."""
-    seed = parse_seed(seed_str, with_trans=trans)
     pt = build_seed_position_table(s1, 0, 0, UPPER_NUC_TO_BITS, seed, 1)
     sc = new_dna_score_set()
     state = carry_state(s1, s2, sc.sub, CPU, pt=pt)
@@ -119,33 +165,73 @@ def _launch_inputs(s1, s2, seed_str, trans):
     assert np.array_equal(np.asarray(cum_j), cum_t.numpy())
     assert np.array_equal(np.asarray(ends_j), ends_t.numpy())
     total = int(tot_t)
-    H = 4096
     assert 0 < total <= H
     karr_t = th.expand_chunk(cum_t, 2 * H)
     karr_j = jh.expand_chunk(cum_j, 2 * H)
     assert np.array_equal(np.asarray(karr_j), karr_t.numpy())
-    return seed, pt, state, xors, cum_t, ends_t, karr_t, total, H
+    return pt, state, xors, codes, cum_t, ends_t, karr_t, total
 
 
-@pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas"])
-def test_hit_launch_matches_jax(pallas, monkeypatch):
+# name: (seed pattern, max index bits, trans, recover); "pallas" runs
+# lastz_tpu's scan as its Pallas kernel in interpret mode, "resolve" is
+# an overweight seed (4 resolving positions)
+LAUNCH_CASES = {
+    "xla": ("11111111111", 28, 1, False),
+    "pallas": ("11111111111", 28, 1, False),
+    "recover": ("11111111111", 28, 1, True),
+    "resolve": ("111011011010111", 16, 1, False),
+}
+
+
+@pytest.mark.parametrize("mode", list(LAUNCH_CASES))
+def test_hit_launch_matches_jax(mode, monkeypatch):
     import lastz_tpu.ops.xdrop_pallas as xp
     from lastz_tpu.search import device_hits as jdh
+    from lastz_tpu.search.batched import _probe_budgets
+    pattern, bits, trans, recover = LAUNCH_CASES[mode]
     s1, s2 = _related_pair(3000, seed=7, ident=0.92, with_n=False)
-    seed, pt, state, xors, cum, ends, karr, total, H = _launch_inputs(
-        s1, s2, "11111111111", 1)
+    seed = parse_seed(pattern, bits, with_trans=trans)
+    H = 4096
+    pt, state, xors, codes, cum, ends, karr, total = _launch_inputs(
+        s1, s2, seed, H)
     L = seed.length
     sub = state["subsmall"]
+    rng = np.random.default_rng(5)
     de0 = np.full(65536, -1, np.int32)
     de0[::97] = 40  # some live diagonal extents
+    da0 = np.zeros(65536, np.int32)
+    if recover:
+        # extents past many hits, on the hits' own diagonal (dropped) or
+        # on another diagonal of the same hash (kept, unblocked left);
+        # the related pair's own hits are on diagonal 0
+        hs = np.arange(7, 65536, 7)
+        de0[hs] = rng.integers(0, 2500, len(hs))
+        da0[hs] = np.where(rng.random(len(hs)) < 0.5, hs, hs - 65536)
+        de0[0], da0[0] = 300, 0
     scal = dict(hit_base=0, total=total, chunk_lo=0,
                 adj_start=int(pt.adj_start), step=int(pt.step), seed_len=L,
                 thresh=300, band=1 << 30, len1=len(s1), len2=len(s2))
     static = dict(x_drop=300, no_extend=False, self_compare=False,
                   same_strand=False, use_thresh=True, has_alive=False,
-                  K=16, nprobe=len(xors), H=H, out_cap=512)
+                  K=16, nprobe=len(xors), H=H, out_cap=512, recover=recover,
+                  has_resolve=seed.type == "R")
+    res_j = res_t = {}
+    if seed.type == "R":
+        assert len(seed.resolve_bits) > 0
+        rmap = tuple((int(src), i) for i, src in enumerate(seed.resolve_bits))
+        qres_t, _ = th.pack_query_words(torch.from_numpy(codes), rmap, L,
+                                        seed.bits_per_base)
+        qres_j, _ = jh.pack_query_words(jnp.asarray(codes), rmap, L,
+                                        seed.bits_per_base)
+        budgets = _probe_budgets(seed)
+        res_j = dict(csr_resolve=jnp.asarray(pt.csr_resolve.astype(np.uint32)),
+                     q_resolve=qres_j.astype(jnp.uint32),
+                     budgets=jnp.asarray(budgets.astype(np.int32)))
+        res_t = dict(csr_resolve=torch.from_numpy(
+            pt.csr_resolve.astype(np.uint32).view(np.int32)),
+            q_resolve=qres_t, budgets=torch.from_numpy(budgets))
     extra = {}
-    if pallas:
+    if mode == "pallas":
         monkeypatch.setattr(xp, "NB", 512)
         monkeypatch.setattr(xp, "LMARGIN", 2048)
         code_map = state["code_map"]
@@ -157,27 +243,33 @@ def test_hit_launch_matches_jax(pallas, monkeypatch):
                      sub_tuple=tuple(int(v) for v in
                                      sub[:k_real, :k_real].reshape(-1)))
     J = jnp.asarray
-    de_j, _, out_j, sc_j = jh.hit_launch(
+    de_j, da_j, out_j, sc_j = jh.hit_launch(
         J(state["seq1p"].numpy()), J(state["seq2p"].numpy()),
         J(sub.reshape(-1)), J(state["csr_pos"].numpy()),
         J(np.zeros(1, np.uint8)),
         J(cum.numpy().astype(np.int32)), J(ends.numpy().astype(np.int32)),
-        J(karr[:H].numpy().astype(np.int32)), J(de0),
-        J(np.zeros(65536, np.int32)),
-        *(jnp.int32(v) for v in scal.values()), **extra, **static)
-    de_t, out_t, sc_t = th.hit_launch(
+        J(karr[:H].numpy().astype(np.int32)), J(de0), J(da0),
+        *(jnp.int32(v) for v in scal.values()), **extra, **res_j, **static)
+    de_t, da_t, out_t, sc_t = th.hit_launch(
         state["seq1p"], state["seq2p"], state["subsmall_t"].reshape(-1),
         state["csr_pos"], None, cum, ends, karr[:H], torch.from_numpy(de0),
-        *scal.values(), **static)
+        torch.from_numpy(da0), *scal.values(), **res_t, **static)
     assert np.array_equal(np.asarray(sc_j)[:5], sc_t.numpy()[:5])
     assert int(sc_t[0]) > 20  # survivors exist
+    assert int(sc_t[4]) == 1  # converged: the state advanced
     assert np.array_equal(np.asarray(out_j), out_t.numpy())
     assert np.array_equal(np.asarray(de_j), de_t.numpy())
+    assert np.array_equal(np.asarray(da_j), da_t.numpy())
+    if recover:
+        # both kinds of covered hit occurred: dropped, and kept unblocked
+        assert int(sc_t[2]) > 0
+        assert (da_t.numpy() != da0).any()
 
 
-def _port_engine_inputs(s1, seed_str, trans, gf_extend, thresh, x_drop):
+def _port_engine_inputs(s1, seed_str, trans, gf_extend, thresh, x_drop,
+                        bits=28):
     """The port's seed, table and hit parameters (its own classes)."""
-    seed = t_parse_seed(seed_str, with_trans=trans)
+    seed = t_parse_seed(seed_str, bits, with_trans=trans)
     pt = t_build_table(s1, 0, 0, UPPER_NUC_TO_BITS, seed, 1)
     hp = THitParams(gf_extend=gf_extend, scoring=t_score_set(),
                     x_drop=x_drop,
@@ -186,50 +278,93 @@ def _port_engine_inputs(s1, seed_str, trans, gf_extend, thresh, x_drop):
 
 
 def _port_hits(s1, s2, seed_str, trans, gf_extend, thresh, x_drop=910,
-               **kw):
+               bits=28, **kw):
     seed, pt, hp = _port_engine_inputs(s1, seed_str, trans, gf_extend,
-                                       thresh, x_drop)
+                                       thresh, x_drop, bits)
     hits = []
     eng = SeedSearchEngine(
         s1, pt, s2, seed, UPPER_NUC_TO_BITS, hp,
         lambda p1, p2, ln, s: hits.append((p1, p2, ln, s)) or ln,
         device=CPU, **kw)
     runs = device_hits.device_search.runs
+    st = tstats.reset()
     eng.search(0, len(s2))
     assert device_hits.device_search.runs == runs + 1  # not the host path
+    assert "seed host searches" not in st.extra
     return hits
 
 
 JAX_DEVICE = {"LASTZ_TPU_SCALAR_SEARCH": "0", "LASTZ_TPU_HITGEN": "1",
               "LASTZ_TPU_HIT_BUDGET": str(1 << 15)}
 
+
+def _collision_pair():
+    """tests/test_hitgen.py:177-205: a segment repeated at a distance of
+    exactly 65536, so every query word hits two true diagonals with one
+    hashed diagonal."""
+    rng = np.random.default_rng(11)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    core = alpha[rng.integers(0, 4, 3000)]
+    fill = alpha[rng.integers(0, 4, 65536 - 3000)]
+    s1 = np.concatenate([core, fill, core, alpha[rng.integers(0, 4, 500)]])
+    s2 = core.copy()
+    mut = rng.random(len(s2)) < 0.10
+    s2[mut] = alpha[rng.integers(0, 4, mut.sum())]
+    return s1, s2
+
+
+# name: (pair, seed, max index bits, trans, gf_extend, thresh, x_drop,
+# hit mode); a pair is _related_pair's arguments or a function
 SEARCH_CASES = {
-    # name: (pair args, seed, trans, gf_extend, thresh, x_drop, engine kw)
-    "trans0": ((6000,), "1110100110010101111", 0, GFEX_XDROP, 3000, 910,
-               {}),
-    "trans1": ((6000,), "1110100110010101111", 1, GFEX_XDROP, 3000, 910,
-               {}),
-    "trans2": ((6000,), "1110100110010101111", 2, GFEX_XDROP, 3000, 910,
-               {}),
-    "dense_chains": ((3000, 7, 0.92), "11111111", 0, GFEX_XDROP, 300, 300,
-                     {}),
-    "no_extend": ((2500, 5), "111111111111", 0, GFEX_NO_EXTEND, 0, 910, {}),
-    "halfweight": ((4000, 13), "TTT0T0TTT0TT0TTTT", 0, GFEX_XDROP, 2000,
-                   910, {}),
+    "trans0": ((6000,), "1110100110010101111", 28, 0, GFEX_XDROP, 3000, 910,
+               "simple"),
+    "trans1": ((6000,), "1110100110010101111", 28, 1, GFEX_XDROP, 3000, 910,
+               "simple"),
+    "trans2": ((6000,), "1110100110010101111", 28, 2, GFEX_XDROP, 3000, 910,
+               "simple"),
+    "dense_chains": ((3000, 7, 0.92), "11111111", 28, 0, GFEX_XDROP, 300,
+                     300, "simple"),
+    "no_extend": ((2500, 5), "111111111111", 28, 0, GFEX_NO_EXTEND, 0, 910,
+                  "simple"),
+    "halfweight": ((4000, 13), "TTT0T0TTT0TT0TTTT", 28, 0, GFEX_XDROP, 2000,
+                   910, "simple"),
+    "recover_trans0": ((6000,), "1110100110010101111", 28, 0, GFEX_XDROP,
+                       3000, 910, "recover"),
+    "recover_trans1": ((6000,), "1110100110010101111", 28, 1, GFEX_XDROP,
+                       3000, 910, "recover"),
+    "recover_trans2": ((6000,), "1110100110010101111", 28, 2, GFEX_XDROP,
+                       3000, 910, "recover"),
+    "recover_collisions": (_collision_pair, "1110100110010101111", 28, 0,
+                           GFEX_XDROP, 2000, 910, "recover"),
+    "overweight": ((6000, 4, 0.97), "111011011010111", 16, 1, GFEX_XDROP,
+                   1000, 910, "simple"),
+    "overweight_dense": ((4000, 17, 0.95), "1111011111", 12, 1, GFEX_XDROP,
+                         300, 300, "simple"),
 }
 
 
 @pytest.mark.parametrize("case", list(SEARCH_CASES))
 def test_device_search_matches_scalar_and_jax(case):
-    pair, seed_str, trans, gfex, thresh, x_drop, kw = SEARCH_CASES[case]
-    s1, s2 = _related_pair(*pair)  # with an N run
-    args = (s1, s2, seed_str, trans, gfex, thresh)
-    ref = _collect(*args, x_drop=x_drop, env=SCALAR)
-    dev = _collect(*args, x_drop=x_drop, env=JAX_DEVICE)
-    got = _port_hits(*args, x_drop=x_drop, **kw)
+    pair, pattern, bits, trans, gfex, thresh, x_drop, mode = \
+        SEARCH_CASES[case]
+    s1, s2 = pair() if callable(pair) else _related_pair(*pair)
+    if bits == 28:
+        args = (s1, s2, pattern, trans, gfex, thresh)
+        ref = _collect(*args, x_drop=x_drop, env=SCALAR, hit_mode=mode)
+        dev = _collect(*args, x_drop=x_drop, env=JAX_DEVICE, hit_mode=mode)
+    else:
+        seed = parse_seed(pattern, bits, with_trans=trans)
+        assert seed.type == "R" and len(seed.resolve_bits) > 0
+        ref = _collect_seed(s1, s2, seed, SCALAR, gfex, thresh, x_drop)
+        dev = _collect_seed(s1, s2, seed, JAX_DEVICE, gfex, thresh, x_drop)
+    got = _port_hits(s1, s2, pattern, trans, gfex, thresh, x_drop=x_drop,
+                     bits=bits, hit_mode=mode)
     assert len(ref) > 0
     assert dev == ref
     assert got == ref
+    if case == "recover_collisions":  # collisions were recovered
+        simple = _collect(s1, s2, pattern, trans, gfex, thresh, env=SCALAR)
+        assert len(ref) > len(simple)
 
 
 def test_device_search_split_and_band(monkeypatch):
@@ -251,18 +386,21 @@ def test_device_search_split_and_band(monkeypatch):
 
 
 def test_unsupported_modes_go_to_the_host_engine():
-    """Recover seeds are outside the slice: the port's engine hands
+    """Twins are outside the device search: the port's engine hands
     them to its own host engines and counts it."""
-    s1, s2 = _related_pair(4000)
+    L = 19
+    spans = (2 * L, 2 * L + 25)
+    s1, s2 = _related_pair(6000, seed=4, ident=0.97)
     args = (s1, s2, "1110100110010101111", 1, GFEX_XDROP, 3000)
-    ref = _collect(*args, env=SCALAR, hit_mode="recover")
+    ref = _collect(*args, env=SCALAR, twin_spans=spans)
     seed, pt, hp = _port_engine_inputs(s1, args[2], 1, tconfig.GFEX_XDROP,
                                        3000, 910)
     hits = []
     eng = SeedSearchEngine(
         s1, pt, s2, seed, UPPER_NUC_TO_BITS, hp,
         lambda p1, p2, ln, s: hits.append((p1, p2, ln, s)) or ln,
-        hit_mode="recover", device=CPU)
+        hit_mode="twin", twin_min_span=spans[0], twin_max_span=spans[1],
+        device=CPU)
     st = tstats.reset()
     runs = device_hits.device_search.runs
     eng.search(0, len(s2))

@@ -123,6 +123,11 @@ OPTION_SETS = {
     "nogapped": (["--nogapped"], None),
     "chain": (["--ydrop=3000", "--chain"], None),
     "tweener": (["--ydrop=3000", "--inner=2000"], _tweener_pair),
+    "recoverseeds": (["--ydrop=3000", "--recoverseeds"], None),
+    # 12of19's 24 index bits over a 20-bit word: an overweight seed
+    "word20": (["--ydrop=3000", "--word=20"], None),
+    # --writecapsule={cap}, then the same run through --targetcapsule
+    "capsule": (["--ydrop=3000"], None),
 }
 
 
@@ -149,6 +154,16 @@ def test_runs_with_jax_and_lastz_tpu_blocked(tmp_path, opts):
     options, pair = OPTION_SETS[opts]
     t, q = (pair or (lambda p: _make_pair(p, n=1500, seed=5)))(tmp_path)
     args = [t, q, *options]
+    if opts == "capsule":
+        # both packages write a capsule of t, byte for byte the same;
+        # then both search q against the port's capsule
+        caps = [str(tmp_path / f"{who}.cap") for who in ("port", "host")]
+        wrote = [run_blocked([t, f"--writecapsule={caps[0]}"]),
+                 _host([t, f"--writecapsule={caps[1]}"])]
+        assert wrote[0] == wrote[1].replace(caps[1], caps[0])
+        with open(caps[0], "rb") as a, open(caps[1], "rb") as b:
+            assert a.read() == b.read()
+        args = [f"--targetcapsule={caps[0]}", q, *options]
     host = _host(args)
     assert run_blocked(args) == host
     assert "a {" in host or "s " in host

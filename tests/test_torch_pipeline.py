@@ -37,11 +37,12 @@ def _small_geometry(monkeypatch, mod):
     monkeypatch.setattr(mod, "DEFAULT_BATCH", 8)
 
 
-@pytest.mark.parametrize("fmt", ["lav", "maf"])
+@pytest.mark.parametrize("fmt", ["lav", "maf", "recoverseeds"])
 def test_cli_matches_lastz_tpu_host_and_device(tmp_path, monkeypatch,
                                                capsys, fmt):
     t, q = _make_pair(tmp_path)
-    args = [t, q, f"--format={fmt}", "--ydrop=3000"]
+    args = [t, q, "--ydrop=3000"] + (
+        ["--recoverseeds"] if fmt == "recoverseeds" else [f"--format={fmt}"])
     monkeypatch.delenv("LASTZ_TPU_DEVICE", raising=False)
     host_out = _host(args)
 
