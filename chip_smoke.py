@@ -18,8 +18,9 @@ Phases, one line each (any failure exits nonzero):
                (one mega launch, and walk_inputs' synthetic blocks at
                WALK_EDGE_CAPS), K3 and K3b (band 512 x 1024 rows,
                4,096 anchors of the 4 Mbp pair below, forward and
-               reverse), and the chain walk on CHAIN_EDGES in both
-               modes; times each wrapper call (K1's with the zeroed
+               reverse; K3's swept cells, the rows its early stop
+               leaves, beside the live and grid cells), and the chain
+               walk on CHAIN_EDGES in both modes; times each wrapper call (K1's with the zeroed
                allocation of its link buffer) next to its plain version
                with CUDA events, and works out its bound from the
                inputs it was timed on (and the walk's chain floor)
@@ -51,6 +52,8 @@ Phases, one line each (any failure exits nonzero):
                walk in its mode, the capsule's DeviceIndex reused; then
                the chain walk against its plain version on the captured
                first launches of the main and recover paths, timed
+               through its wrapper and alone (an event pair around the
+               kernel)
   4 extend     ops/ydrop_pallas.py's own path, with every counter
                reset before it: prepare_anchor_batch, then
                ydrop_extend_batch (K3) and ydrop_band_batch (K3b) on
@@ -121,9 +124,20 @@ XDROP_EDGES = ([f"n{v}" for v in (0, 1, 31, 32, 33, 63, 64, 65, 127, 128,
 # chains of cap - 1 and cap hits, and one of cap + 1 (unconverged, the
 # walk stops at cap + 1 as the lockstep loop does); HASH_INACTIVE heads;
 # recover collisions, two true diagonals on one hash; a long dead-hit
-# sentinel chain; a launch with no live hit; and a random mixture
+# sentinel chain; a launch with no live hit; a random mixture; chain
+# lengths at the kernel's tile edges (CHAIN_TILE_LENGTHS); and chains of
+# about 50 hits with one far longer (long_tail)
 CHAIN_EDGES = ["single", "cap_edges", "cap_over", "inactive_head",
-               "collisions", "dead_tail", "empty", "mixed"]
+               "collisions", "dead_tail", "empty", "mixed", "tile_edges",
+               "long_tail"]
+# tile_edges' chain lengths: at the edges of csrc/resolve_chains.cu's
+# 16-hit staging rounds, of a warp's 32 lanes and of the 1024-hit tiles
+# a warp stages its run of hits through, and the main path's longest
+# (410)
+CHAIN_TILE = 1024
+CHAIN_TILE_LENGTHS = [1, 2, 15, 16, 17, 31, 32, 33, 63, 64,
+                      CHAIN_TILE - 1, CHAIN_TILE, CHAIN_TILE + 1,
+                      2 * CHAIN_TILE, 410]
 
 
 # the index phase: a synthetic target the size of a human chromosome
@@ -495,6 +509,19 @@ def chain_edge_inputs(case, cap):
         hashes, lens = np.array([17, 300]), np.array([cap + 1, 10])
     elif case == "empty":
         hashes, lens = np.zeros(0, np.int64), np.zeros(0, np.int64)
+    elif case == "tile_edges":
+        # four chains of each length at random hashes, then 40 chains
+        # in a row (a warp's 32 and more) that each cross a tile edge
+        edges = np.array(CHAIN_TILE_LENGTHS * 4)
+        hashes = rng.choice(65536, len(edges) + 40, replace=False)
+        lens = np.minimum(np.concatenate(
+            [edges, np.full(40, CHAIN_TILE + 1)]), cap)
+    elif case == "long_tail":
+        # the main path's shape: chains of about 50 hits on every hash
+        # and one far longer, still under the cap
+        hashes = np.sort(rng.choice(65536, 16384, replace=False))
+        lens = np.minimum(rng.poisson(50, 16384), cap)
+        lens[rng.integers(16384)] = min(3000, cap)
     else:
         n = {"mixed": 2000}.get(case, 200)
         hashes = rng.choice(65536, n, replace=False)
@@ -783,22 +810,35 @@ def check_chain_launch(launch):
                              f"differs")
     err = same(got[:-1], want[:-1], f"chain walk, a launch, recover={recover}")
     ms = cuda_ms(lambda: resolve_chains(*a, **kw), 5)
-    walk = torch.clamp(lens.long(), max=hitgen.RESOLVE_CHAIN_CAP + 1)
-    walked = int(walk.sum())
-    max_len = int(walk.max())
-    # read: each walked hit's extent, start2 and live byte (recover: its
-    # diag too), each chain's start, length and head state(s); written:
-    # every hit's alive byte and de_before (recover: each chain's pair)
-    per_hit = 9 + 4 * recover
-    n_bytes = (walked * per_hit + extent.shape[0] * 5
-               + starts.shape[0] * (12 + 12 * recover))
+    kernel_ms = replay_ms("resolve_chains_launch",
+                          lambda: resolve_chains(*a, **kw))
+    n_bytes, walked, max_len = chain_bytes(launch)
     floor = chain_walk_floor_ms(max_len)
     say("kernels", kernel="resolve_chains", recover=recover,
         hits=extent.shape[0], walked=walked,
         chains=int((lens > 0).sum()), max_chain=max_len, ms=ms,
-        plain_ms=plain_ms, chain_floor_ms=floor, equal=True)
-    return err, ms, plain_ms, n_bytes, walked, {"max_chain": max_len,
-                                                "chain_floor_ms": floor}
+        kernel_ms=kernel_ms, plain_ms=plain_ms, chain_floor_ms=floor,
+        equal=True)
+    return err, ms, plain_ms, n_bytes, walked, {
+        "max_chain": max_len, "chain_floor_ms": floor,
+        "kernel_ms": kernel_ms}
+
+
+def chain_bytes(launch):
+    """(bytes, walked hits, longest walk) of one chain-walk launch:
+    read, each walked hit's extent, start2 and live byte (recover: its
+    diag too), each chain's start, length and head state(s); written,
+    every hit's alive byte and de_before (recover: each chain's
+    pair)."""
+    import torch
+    from lastz_tpu_torch.ops import hitgen
+    (starts, lens, extent, *_), kw = launch
+    recover = "diag_s" in kw
+    walk = torch.clamp(lens.long(), max=hitgen.RESOLVE_CHAIN_CAP + 1)
+    walked = int(walk.sum())
+    n_bytes = (walked * (9 + 4 * recover) + extent.shape[0] * 5
+               + starts.shape[0] * (12 + 12 * recover))
+    return n_bytes, walked, int(walk.max())
 
 
 def anchor_batches(pair):
@@ -870,9 +910,15 @@ def check_k3(dev, batches, name):
             cells = int(span.sum())
             grid = int(((args[0] >= 0).sum(1).long()
                         * (args[1] >= 0).sum(1).long()).sum())
-            say("kernels", kernel=name, live_cells=cells, grid_cells=grid)
+            extra = {}
+            if name == "ydrop_wavefront":
+                # the rows K3's early stop leaves it, a full band each
+                rows = tp.ydrop_wavefront_rows(*args, **geo)
+                extra["swept_cells"] = int(rows.sum()) * geo["band"]
+            say("kernels", kernel=name, live_cells=cells, grid_cells=grid,
+                **extra)
             n_bytes = nbytes(*args, got)
-    return err, ms, plain_ms, n_bytes, cells, {"refs": refs}
+    return err, ms, plain_ms, n_bytes, cells, {"refs": refs, **extra}
 
 
 def phase_kernels(card, pair):
@@ -932,6 +978,7 @@ def chain_row(card, edge_err, main_launch, recover_launch):
         main_launch)
     r_err, r_ms, r_plain, *_, r_extra = check_chain_launch(recover_launch)
     extra.update(recover_ms=r_ms, recover_plain_ms=r_plain,
+                 recover_kernel_ms=r_extra["kernel_ms"],
                  recover_max_chain=r_extra["max_chain"])
     return kernel_row(card, "resolve_chains",
                       "lastz_tpu_torch/csrc/resolve_chains.cu",
@@ -1058,6 +1105,40 @@ def timed_launches(entry="ydrop_chunk_launch", fn=None):
         yield events
     finally:
         setattr(lib, entry, own)
+
+
+def replay_ms(entry, call, reps: int = 20) -> float:
+    """Device ms of one launch of the kernel library's `entry`: call()
+    launches it once (through its wrapper), and its C arguments are then
+    launched `reps` times back to back between two events, so the card
+    never waits on the host (an event pair around one wrapper call also
+    holds the host's enqueue when the card is idle)."""
+    import torch
+    from lastz_tpu_torch.kernels import build
+    lib = build.load()
+    own = getattr(lib, entry)
+    seen = []
+
+    def keep(*a):
+        seen.append(a)
+        return own(*a)
+
+    setattr(lib, entry, keep)
+    try:
+        call()
+    finally:
+        setattr(lib, entry, own)
+    a = seen[0]
+    own(*a)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        build.check(own(*a), entry)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
 
 
 def launch_ms(events):

@@ -2,12 +2,14 @@
 """Time one of the main path's kernels beside other builds of it on one
 NVIDIA card.
 
-    python3 kernel_bench.py [--kernel ydrop_chunk|xdrop_scan|ydrop_traceback]
+    python3 kernel_bench.py [--kernel ydrop_chunk|xdrop_scan|ydrop_traceback
+                             |resolve_chains|ydrop_wavefront]
                             --other NAME=SRC.cu [--other NAME=SRC.cu ...]
+                            [--prefilled NAME]
 
 --kernel (default ydrop_chunk, K1) names the kernel by its wrapper's
-counter name in chip_smoke.py: K1, K2 (x-drop scan) or the traceback
-walk.  Each SRC.cu is another source of that kernel (for example the
+counter name in chip_smoke.py: K1, K2 (x-drop scan), the traceback
+walk, the seed stage's chain walk or K3.  Each SRC.cu is another source of that kernel (for example the
 parent commit's lastz_tpu_torch/csrc/<source>.cu), built with nvcc with
 its C entry point renamed (-D<entry>=<entry>_<NAME>) into its own
 library.  A source whose entry point takes fewer arguments than the
@@ -17,13 +19,21 @@ runs.  Every build runs in turns (others, package, package, others
 reversed) on the same inputs:
 
   cases    the kernel's shapes in chip_smoke.py, timed as chip_smoke.py
-           times them (CUDA events over the wrapper): K1 the first
+           times them (CUDA events over the wrapper, and the kernel
+           alone: its C call replayed back to back, replay_ms): K1 the first
            chunk of each K1_TIMED case, K2 k2_setup's 2M hits, the walk
-           walk_setup's mega launch; every build's outputs must equal
-           the package's
-  main     the 4 Mbp default run of chip_smoke.py phase 3 with a CUDA
-           event pair around every launch of the kernel; the builds'
-           LAV must be equal
+           walk_setup's mega launch, the chain walk the first launch of
+           the 4 Mbp main path and of its --recoverseeds run, K3
+           K3_SHAPE in both orientations; every build's outputs must
+           equal the package's
+  main     the 4 Mbp default run of chip_smoke.py phase 3 (for the chain
+           walk also with --recoverseeds) with a CUDA event pair around
+           every launch of the kernel; the builds' LAV must be equal.
+           K3 is off the CLI and has none
+
+A chain walk older than this package's (a parent's source) wrote only
+the hits it walked into outputs its wrapper had filled; --prefilled
+NAME fills them before each of that build's launches, inside its time.
 
 Prints one JSON object per line, with the card's name and power limit.
 Needs a card.
@@ -133,16 +143,87 @@ def walk_cases(dev):
     return [("table", run, 3, *cs.walk_bytes(args, traceback_mega(*args)))]
 
 
-# kernel: (C entry point, its cases)
-KERNELS = {"ydrop_chunk": ("ydrop_chunk_launch", k1_cases),
-           "xdrop_scan": ("xdrop_scan_launch", k2_cases),
-           "ydrop_traceback": ("ydrop_traceback_launch", walk_cases)}
+def chain_cases(dev):
+    """The chain walk on the first launch of the 4 Mbp main path and of
+    its --recoverseeds run, captured as chip_smoke.py captures them."""
+    from lastz_tpu_torch import cli
+    from lastz_tpu_torch.ops.resolve_cuda import resolve_chains
+    os.environ["LASTZ_TORCH_DEVICE"] = "cuda"
+    out = []
+    with tempfile.TemporaryDirectory() as tdir:
+        tp, qp, _, _ = cs.write_pair(tdir, cs.make_pair())
+        for name, opts in (("main_launch", []),
+                           ("recover_launch", ["--recoverseeds"])):
+            with cs.chain_capture() as first, \
+                    contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                if cli.main([tp, qp, *opts]) != 0:
+                    raise RuntimeError(f"the port's CLI failed on {name}")
+            a, kw = first[0]
+
+            def run(a=a, kw=kw):
+                return list(resolve_chains(*a, **kw))
+
+            n_bytes, walked, _ = cs.chain_bytes(first[0])
+            out.append((name, run, 5, n_bytes, walked))
+    return out
+
+
+def k3_cases(dev):
+    """K3 at chip_smoke.K3_SHAPE, both orientations (it is off the CLI,
+    so there is no main-path run)."""
+    import torch
+    from lastz_tpu_torch.ops.ydrop_pallas import (ydrop_extend_batch,
+                                                  ydrop_wavefront_plain)
+    geo = dict(band=cs.K3_SHAPE["band"], max_rows=cs.K3_SHAPE["max_rows"])
+    out = []
+    for rev, batch in cs.anchor_batches(cs.make_pair()).items():
+        args = [torch.from_numpy(a).to(dev) for a in batch]
+
+        def run(args=args):
+            return [ydrop_extend_batch(*args, **geo)]
+
+        _, span = ydrop_wavefront_plain(*args, **geo, live_span=True)
+        out.append(("reversed" if rev else "forward", run, 3,
+                    cs.nbytes(*args, run()[0]), int(span.sum())))
+    return out
+
+
+# kernel: (C entry point, its cases, its runs on the CLI's path: the
+# options of each, or None for a kernel off it)
+KERNELS = {"ydrop_chunk": ("ydrop_chunk_launch", k1_cases, [[]]),
+           "xdrop_scan": ("xdrop_scan_launch", k2_cases, [[]]),
+           "ydrop_traceback": ("ydrop_traceback_launch", walk_cases, [[]]),
+           "resolve_chains": ("resolve_chains_launch", chain_cases,
+                              [[], ["--recoverseeds"]]),
+           "ydrop_wavefront": ("ydrop_wavefront_launch", k3_cases, None)}
+
+
+def prefilled(fn):
+    """The chain walk's parent took alive and de_before filled with 1
+    and 0 by its wrapper, and wrote only the hits it walked: this calls
+    it after that fill (the fill's time counts in its time)."""
+    import torch
+
+    def view(ptr, n, typestr):
+        class Raw:
+            __cuda_array_interface__ = {"shape": (n,), "typestr": typestr,
+                                        "data": (ptr, False), "version": 3,
+                                        "strides": None}
+        return torch.as_tensor(Raw(), device="cuda")
+
+    def call(*a):
+        H = a[9]
+        view(a[12], H, "|u1").fill_(1)
+        view(a[13], H, "<i4").fill_(0)
+        return fn(*a)
+    return call
 
 
 def time_cases(kernel, builds, order, card):
     """Each case of the kernel, every build in turns."""
     import torch
-    entry, cases = KERNELS[kernel]
+    entry, cases, _ = KERNELS[kernel]
     for name, run, reps, n_bytes, cells in cases(torch.device("cuda")):
         bound_ms, bound_by = cs.bound(kernel, n_bytes, cells)
         ref = run()
@@ -154,17 +235,33 @@ def time_cases(kernel, builds, order, card):
                 raise AssertionError(f"{bname} differs from the package's "
                                      f"{kernel} on {name}")
         times = {b: [] for b in builds}
+        alone = {b: [] for b in builds}
         for bname in order:
             with cs.timed_launches(entry, fn=builds[bname]):
                 times[bname].append(cs.cuda_ms(run, reps))
+            alone[bname].append(replay(entry, builds[bname], run))
         cs.say("kernel_bench", kernel=kernel, case=name, cells=cells,
                bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
-               order=order, ms=times, card=card)
+               order=order, ms=times, kernel_alone_ms=alone, card=card)
 
 
-def time_main(kernel, builds, order, card):
+def replay(entry, fn, run):
+    """chip_smoke.replay_ms of the build `fn`: its C call, captured from
+    one run() through the package's wrapper, launched back to back."""
+    from lastz_tpu_torch.kernels import build
+    lib = build.load()
+    own = getattr(lib, entry)
+    setattr(lib, entry, fn)
+    try:
+        return cs.replay_ms(entry, run)
+    finally:
+        setattr(lib, entry, own)
+
+
+def time_main(kernel, builds, order, card, opts=()):
     """The kernel's device ms per launch on chip_smoke.py's phase-3
-    run, once for each build in turns."""
+    run (with `opts` added to its options), once for each build in
+    turns."""
     from lastz_tpu_torch import cli
     entry = KERNELS[kernel][0]
     os.environ["LASTZ_TORCH_DEVICE"] = "cuda"
@@ -177,15 +274,15 @@ def time_main(kernel, builds, order, card):
             with open(out, "w") as f, contextlib.redirect_stdout(f), \
                     contextlib.redirect_stderr(io.StringIO()), \
                     cs.timed_launches(entry, fn=builds[bname]) as events:
-                rc = cli.main([tp, qp])
+                rc = cli.main([tp, qp, *opts])
             ms = cs.launch_ms(events)
             wall_s = time.monotonic() - t0
             if rc != 0:
                 raise RuntimeError(f"the port's CLI exited {rc}")
             with open(out, "rb") as f:
                 lav[i] = f.read()
-            cs.say("kernel_bench", kernel=kernel, run="main", build=bname,
-                   **ms, wall_s=wall_s, card=card)
+            cs.say("kernel_bench", kernel=kernel, run="main", options=opts,
+                   build=bname, **ms, wall_s=wall_s, card=card)
     if len(set(lav.values())) != 1:
         raise AssertionError("the builds wrote different LAV")
 
@@ -196,6 +293,10 @@ def main(argv=None):
                     help="the kernel to time (default K1, ydrop_chunk)")
     ap.add_argument("--other", action="append", required=True,
                     help="NAME=SRC.cu: another source of the kernel")
+    ap.add_argument("--prefilled", action="append", default=[],
+                    help="NAME of an --other chain walk that needs its "
+                    "outputs filled first (a source whose wrapper filled "
+                    "alive and de_before)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -204,18 +305,21 @@ def main(argv=None):
     from lastz_tpu_torch.kernels import build
     card = cs.card_line()
     print(card, flush=True)
-    entry = KERNELS[args.kernel][0]
+    entry, _, main_runs = KERNELS[args.kernel]
     others = [tuple(spec.split("=", 1)) for spec in args.other]
     with tempfile.TemporaryDirectory() as tdir:
         t0 = time.monotonic()
         builds = build_others(entry, others, tdir)
+        for name in args.prefilled:
+            builds[name] = prefilled(builds[name])
         builds["package"] = getattr(build.load(), entry)
         cs.say("kernel_bench", kernel=args.kernel, built=list(builds),
                build_s=time.monotonic() - t0)
         order = [n for n, _ in others] + ["package", "package"] + [
             n for n, _ in reversed(others)]
         time_cases(args.kernel, builds, order, card)
-        time_main(args.kernel, builds, order, card)
+        for opts in main_runs or ():
+            time_main(args.kernel, builds, order, card, opts)
     return 0
 
 

@@ -361,10 +361,13 @@ def hit_launch(seq1p, seq2p, subflat, csr_pos, alive_tab, cum, ends,
     live_s = live[order]
     starts, lens = chain_bounds(seg_start, live_s)
     key_c = torch.clamp(key_s, max=DIAG_HASH_SIZE - 1)
+    # the walk's per-hit inputs in int32, as its kernel takes them
+    extent_s = extent[order].to(_I32)
+    start2_s = (pos2 - seed_len)[order].to(_I32)
     if recover:
         alive_s, de_before_s, fin_de, fin_da, converged = resolve_chains(
-            starts, lens, extent[order], (pos2 - seed_len)[order],
-            de[key_c], live_s, diag_s=diag[order], da0_s=da[key_c])
+            starts, lens, extent_s, start2_s, de[key_c], live_s,
+            diag_s=diag[order].to(_I32), da0_s=da[key_c])
         # each chain's end state back at its hash (hitgen.py:596-602)
         valid = lens > 0
         at = key_s[starts[valid].to(_I64)]
@@ -375,7 +378,7 @@ def hit_launch(seq1p, seq2p, subflat, csr_pos, alive_tab, cum, ends,
     else:
         # HASH_INACTIVE (-1) activates to 0
         alive_s, de_before_s, converged = resolve_chains(
-            starts, lens, extent[order], (pos2 - seed_len)[order],
+            starts, lens, extent_s, start2_s,
             torch.clamp(de[key_c], min=0), live_s)
     inv = torch.empty_like(order)
     inv[order] = i
@@ -406,9 +409,12 @@ def hit_launch(seq1p, seq2p, subflat, csr_pos, alive_tab, cum, ends,
     rows = (pos1, pos2, pidx + chunk_lo, lscore, lstart, rscore, rstop,
             de_before, bind.to(_I64))
     out[:, : keep.shape[0]] = torch.stack([v[keep] for v in rows]).to(_I32)
+    # one fetch for the counts and the walk's converged flag (a 0-d
+    # tensor from its kernel, a bool from its plain version)
+    n_live, n_alive, converged = torch.stack([
+        live.sum(), alive.sum(),
+        torch.as_tensor(converged, device=dev).to(_I64)]).tolist()
     discard = n_keep > out_cap or not converged
-    n_live = int(live.sum())
-    n_alive = int(alive.sum())
     scalars = torch.tensor([n_keep, n_live, n_live - n_alive, n_alive,
                             int(converged), 0])
     if discard:

@@ -32,7 +32,9 @@ def resolve_chains(starts, lens, extent_s, start2_s, de0_s, live_s,
     de0_s is the activated extent at the head (>= 0); returns (alive_s,
     de_before_s, converged).  Recover mode, with diag_s and da0_s:
     de0_s and da0_s are the raw states at the head; returns (alive_s,
-    de_before_s, fin_de, fin_da, converged), fin_* per chain."""
+    de_before_s, fin_de, fin_da, converged), fin_* per chain.  On the
+    card every array is contiguous int32 (live_s bool) and converged is
+    a 0-d bool tensor there; the plain versions return a bool."""
     recover = diag_s is not None
     if starts.device.type == "cpu":
         if recover:
@@ -52,27 +54,32 @@ def resolve_chains(starts, lens, extent_s, start2_s, de0_s, live_s,
     if nch == 0 or lens.shape[0] != nch or live_s.dtype != torch.bool:
         raise ValueError("resolve_chains: starts and lens must be one "
                          "nonempty length and live_s bool")
+    for what, a in (("starts", starts), ("lens", lens),
+                    ("extent_s", extent_s), ("start2_s", start2_s),
+                    ("de0_s", de0_s)) + (
+            (("diag_s", diag_s), ("da0_s", da0_s)) if recover else ()):
+        if a.dtype != _I32 or not a.is_contiguous():
+            raise ValueError(f"resolve_chains: {what} must be contiguous "
+                             f"int32, not {a.dtype}")
     dev = starts.device
-    alive = torch.ones(H, dtype=torch.bool, device=dev)
-    de_before = torch.zeros(H, dtype=_I32, device=dev)
+    # the kernel writes every slot of both, so neither is filled here
+    alive = torch.empty(H, dtype=torch.bool, device=dev)
+    de_before = torch.empty(H, dtype=_I32, device=dev)
     fin = torch.empty((2, nch if recover else 0), dtype=_I32, device=dev)
-
-    def i32(a):
-        return a.to(_I32).contiguous()
-    st, ln, ext, s2, d0 = map(i32, (starts, lens, extent_s, start2_s,
-                                    de0_s))
-    dg, a0 = ((i32(diag_s), i32(da0_s)) if recover else (ext, d0))
-    lv = live_s.contiguous()
+    dg, a0 = (diag_s, da0_s) if recover else (extent_s, de0_s)
     rc = build.load().resolve_chains_launch(
-        st.data_ptr(), ln.data_ptr(), nch, ext.data_ptr(), s2.data_ptr(),
-        dg.data_ptr(), lv.data_ptr(), d0.data_ptr(), a0.data_ptr(), H,
-        int(recover), RESOLVE_CHAIN_CAP, alive.data_ptr(),
-        de_before.data_ptr(), fin[0].data_ptr(), fin[1].data_ptr(),
+        starts.data_ptr(), lens.data_ptr(), nch, extent_s.data_ptr(),
+        start2_s.data_ptr(), dg.data_ptr(), live_s.contiguous().data_ptr(),
+        de0_s.data_ptr(), a0.data_ptr(), H, int(recover),
+        RESOLVE_CHAIN_CAP, alive.data_ptr(), de_before.data_ptr(),
+        fin[0].data_ptr(), fin[1].data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     build.check(rc, "resolve_chains")
     resolve_chains.launches += 1
     resolve_chains.recover_launches += int(recover)
-    converged = bool(lens.max() <= RESOLVE_CHAIN_CAP)
+    # on the card, without a host sync: hit_launch fetches it with its
+    # other counts
+    converged = lens.max() <= RESOLVE_CHAIN_CAP
     if recover:
         return alive, de_before, fin[0], fin[1], converged
     return alive, de_before, converged

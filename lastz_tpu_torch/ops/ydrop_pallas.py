@@ -10,7 +10,9 @@ path calls it; it is the throughput study of the recurrence.
   ydrop_extend_batch      K3, csrc/ydrop_wavefront.cu; replaces
                           _ydrop_wavefront_kernel (:156), launched by
                           ydrop_extend_batch (:285).  Anti-diagonal
-                          sweep; plain version ydrop_wavefront_plain
+                          recurrence; plain version
+                          ydrop_wavefront_plain; the kernel's early
+                          stop in plain PyTorch: ydrop_wavefront_rows
   ydrop_band_batch        K3b, the same CUDA source; replaces
                           _ydrop_band_kernel (:38), which no pallas_call
                           reaches.  Row sweep with the insertion state
@@ -100,6 +102,52 @@ def ydrop_wavefront_plain(codes1, codes2, sub4, params, band: int = 512,
     step d (1 .. max_rows + band - 1) lane l computes cell (d-1-l, l+1)
     from the two previous anti-diagonals.  With live_span, returns
     (out, (B,) int64 live-span cells)."""
+    out, lo, hi = _wavefront(codes1, codes2, sub4, params, band, max_rows,
+                             live_span)
+    return (out, _span(lo, hi)) if live_span else out
+
+
+def _can_stop(sub4, params, band, max_rows):
+    """The parameters under which K3's early stop holds: no sum of the
+    recurrence can wrap (csrc/ydrop_wavefront.cu, can_stop)."""
+    gap_e, gap_oe, y_drop = (int(v) for v in params[0, :3])
+    sub = [int(v) for v in sub4.reshape(-1)]
+    return (gap_e >= 0 and gap_oe >= 0 and 0 <= y_drop < 1 << 28
+            and max(sub) <= 1 << 16 and min(sub) >= -(1 << 16)
+            and gap_oe + (max_rows + band) * gap_e < 1 << 28)
+
+
+def ydrop_wavefront_rows(codes1, codes2, sub4, params, band: int = 512,
+                         max_rows: int = 1024):
+    """K3's early stop in plain PyTorch: (B,) int64, the rows of each
+    anchor the kernel has to sweep.  That is up to its last on-grid row
+    (codes1 >= 0), or up to and including the first row r after which
+    no cell can survive the prune again: r is on the grid, the prune
+    removed all of its cells, the column-0 boundary is NEG from row r+1
+    on, and the parameters keep every sum from wrapping.  The proof that
+    no later row then changes the result, for any codes1, is at the top
+    of csrc/ydrop_wavefront.cu."""
+    c1 = codes1.to(_I32)
+    _, _, hi = _wavefront(codes1, codes2, sub4, params, band, max_rows,
+                          True)
+    dev = c1.device
+    r_ix = torch.arange(max_rows, device=dev)
+    on = c1 >= 0
+    last = torch.where(on, r_ix, -1).max(dim=1).values
+    if not _can_stop(sub4, params, band, max_rows):
+        return last + 1
+    gap_e, gap_oe, y_drop = (int(v) for v in params[0, :3])
+    # vcol0(r + 1) is NEG: -gap_oe - r gap_e below -y_drop
+    dead0 = -gap_oe - r_ix * gap_e < -y_drop
+    stop = on & (hi < 0) & dead0[None, :]
+    first = torch.where(stop, r_ix, max_rows).min(dim=1).values
+    return torch.minimum(last + 1, first + 1)
+
+
+def _wavefront(codes1, codes2, sub4, params, band, max_rows, track):
+    """The anti-diagonal sweep of ydrop_wavefront_plain; with track, also
+    each kernel row's first and last lane that survives the prune (lo
+    band and hi -1 where none does)."""
     c1 = codes1.to(_I32)
     c2 = codes2.to(_I32)
     B = c1.shape[0]
@@ -140,7 +188,7 @@ def ydrop_wavefront_plain(codes1, codes2, sub4, params, band: int = 512,
                               left_c - gap_oe)
         c_cur = torch.maximum(torch.maximum(sub_path, d_cur), i_cur)
         keep = on_grid & (c_cur >= best - y_drop)
-        if live_span:
+        if track:
             r_ix = torch.clamp(d - 1 - lane, 0, max_rows - 1)
             lo.scatter_reduce_(1, r_ix, torch.where(keep, lane, band), "amin")
             hi.scatter_reduce_(1, r_ix, torch.where(keep, lane, -1), "amax")
@@ -162,7 +210,7 @@ def ydrop_wavefront_plain(codes1, codes2, sub4, params, band: int = 512,
                           -1).max(dim=1).values
     out = _out(top[:, 0], torch.clamp(end_row[:, 0] - 1, min=0),
                torch.clamp(end_col, min=0))
-    return (out, _span(lo, hi)) if live_span else out
+    return out, lo, hi
 
 
 def _row_sweep_setup(c2, sub4, gap_e, gap_oe, y_drop, band):

@@ -199,12 +199,17 @@ def test_cuda_xdrop_matches_plain():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("band,rows", [(64, 128), (512, 1024)])
+@pytest.mark.parametrize("band,rows", [(64, 128), (512, 1024), (32, 64),
+                                       (96, 200), (1024, 300), (64, 1)])
 @pytest.mark.parametrize("y_drop", [300, 10 ** 7])
 def test_cuda_wavefront_and_band_match_plain(band, rows, y_drop):
     """K3 and K3b against their plain versions on the same card
     tensors: related code pairs with ragged ends, one anchor that
-    scores below 0 everywhere, a batch that is no multiple of 32."""
+    scores below 0 everywhere, one whose band dies within its first
+    rows, one with -1 codes inside codes1 (an off-grid row leaves D
+    alive), one identical pair that never dies, a batch that is no
+    multiple of 32; K3's strip widths 2, 16, 1, 3, 32 and a single
+    row."""
     dev = _card()
     rng = np.random.default_rng(band + y_drop % 7)
     B = 70
@@ -219,6 +224,10 @@ def test_cuda_wavefront_and_band_match_plain(band, rows, y_drop):
         C2[i, int(rng.integers(band // 2, band)):] = -1
     C1[3] = np.where(C1[3] >= 0, 0, -1)
     C2[3] = np.where(C2[3] >= 0, 3, -1)
+    C2[4] = np.where(C2[4] >= 0, (base[4, :band] + 2) % 4, -1)  # dies early
+    C1[5, 3: 3 + max(rows // 8, 1)] = -1  # off-grid rows inside
+    C1[6] = base[6, :rows]  # never dies: a perfect match to its end
+    C2[6] = base[6, :band]
     P = np.tile(np.array([30, 430, y_drop, band - 1], np.int32), (B, 1))
     args = [torch.from_numpy(a).to(dev) for a in (C1, C2, sub4, P)]
     for fn, plain in ((tp.ydrop_extend_batch, tp.ydrop_wavefront_plain),

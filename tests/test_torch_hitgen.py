@@ -266,6 +266,52 @@ def test_hit_launch_matches_jax(mode, monkeypatch):
         assert (da_t.numpy() != da0).any()
 
 
+@pytest.mark.parametrize("recover", [False, True], ids=["simple", "recover"])
+def test_hit_launch_outputs_unchanged_by_int32_walk_inputs(recover,
+                                                          monkeypatch):
+    """hit_launch hands the chain walk its per-hit arrays in int32 (the
+    kernel's type); the same launch with the walk given them in int64,
+    as before, has the same outputs and state."""
+    from lastz_tpu_torch.ops import resolve_cuda
+    s1, s2 = _related_pair(3000, seed=7, ident=0.92, with_n=False)
+    seed = parse_seed("11111111111", 28, with_trans=1)
+    H = 4096
+    pt, state, xors, codes, cum, ends, karr, total = _launch_inputs(
+        s1, s2, seed, H)
+    de0 = np.full(65536, -1, np.int32)
+    de0[::97] = 40
+    da0 = np.zeros(65536, np.int32)
+    if recover:
+        hs = np.arange(7, 65536, 7)
+        de0[hs] = np.random.default_rng(5).integers(0, 2500, len(hs))
+        da0[hs] = hs
+    args = (state["seq1p"], state["seq2p"], state["subsmall_t"].reshape(-1),
+            state["csr_pos"], None, cum, ends, karr[:H],
+            torch.from_numpy(de0), torch.from_numpy(da0), 0, total, 0,
+            int(pt.adj_start), int(pt.step), seed.length, 300, 1 << 30,
+            len(s1), len(s2))
+    kw = dict(x_drop=300, no_extend=False, self_compare=False,
+              same_strand=False, use_thresh=True, has_alive=False, K=16,
+              nprobe=len(xors), H=H, out_cap=512, recover=recover)
+    own = resolve_cuda.resolve_chains
+    seen = []
+
+    def int64_walk(*a, **k):
+        seen.append({t.dtype for t in a[2:4]})
+        return own(*(t.long() if t.dtype == torch.int32 and i in (2, 3)
+                     else t for i, t in enumerate(a)),
+                   **{n: t.long() if n == "diag_s" else t
+                      for n, t in k.items()})
+
+    got = th.hit_launch(*args, **kw)
+    monkeypatch.setattr(resolve_cuda, "resolve_chains", int64_walk)
+    want = th.hit_launch(*args, **kw)
+    assert seen == [{torch.int32}]
+    assert int(got[3][0]) > 20 and int(got[3][4]) == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def _port_engine_inputs(s1, seed_str, trans, gf_extend, thresh, x_drop,
                         bits=28):
     """The port's seed, table and hit parameters (its own classes)."""

@@ -165,3 +165,33 @@ def test_wrappers_refuse_other_devices():
     for fn in (tp.ydrop_extend_batch, tp.ydrop_band_batch):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(C1.to(meta), C2.to(meta), sub4, P, band=BAND, max_rows=ROWS)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("ydrop", list(YDROPS))
+def test_wavefront_early_stop_changes_nothing(seed, ydrop):
+    """The invariant K3's early stop relies on: past the rows that
+    ydrop_wavefront_rows says a sweep needs, codes1 may hold anything
+    (here -1) and the result stays the same, for the plain K3 and for
+    the Pallas wavefront kernel in interpret mode.  Some anchors hold
+    -1 codes inside codes1 (off-grid rows, where D stays alive)."""
+    C1, C2, sub4, P = _batch(seed, YDROPS[ydrop])
+    C1[7, 20:26] = -1
+    C1[8, 3:40:3] = -1
+    args = [torch.from_numpy(a) for a in (C1, C2, sub4, P)]
+    rows = tp.ydrop_wavefront_rows(*args, band=BAND, max_rows=ROWS).numpy()
+    last = np.where(C1 >= 0, np.arange(ROWS), -1).max(1) + 1
+    assert (rows <= last).all()
+    if ydrop == "pruning":
+        assert (rows < last).sum() > B // 4  # the stop saves rows
+    else:
+        assert np.array_equal(rows, last)
+    cut = np.where(np.arange(ROWS)[None, :] < rows[:, None], C1, -1)
+    ref = _port(tp.ydrop_extend_batch, C1, C2, sub4, P)
+    assert np.array_equal(_port(tp.ydrop_extend_batch, cut, C2, sub4, P),
+                          ref)
+    got_j = [np.asarray(jp.ydrop_extend_batch(
+        *map(jnp.asarray, (c, C2, sub4, P)), band=BAND, max_rows=ROWS,
+        interpret=True)) for c in (C1, cut)]
+    assert np.array_equal(got_j[0], got_j[1])
+    assert np.array_equal(got_j[0], ref)
