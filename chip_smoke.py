@@ -12,9 +12,14 @@ Phases, one line each (any failure exits nonzero):
                card, exactly, at its path's shapes: K1 (y-drop chunk,
                128 lanes x 1536 columns x 1024 rows, the five cases of
                tests/test_ydrop_pallas_exact.py and a wide band at the
-               main path's y-drop, with and without link bytes), K2
-               (x-drop scan, 2M hits, and XDROP_EDGES: n, drops and
-               ties at its stage and chunk edges), the traceback walk
+               main path's y-drop, with and without link bytes), K1's
+               mega launch (MEGA_SHAPE: 128 lanes, 8 blocks of 1024
+               rows, lanes ending in their first chunk, after several
+               or past the blocks; every output, with and without link
+               bytes), K2 (x-drop scan, 2M hits, and XDROP_EDGES: n,
+               drops and ties at its stage and chunk edges), K2's wide
+               instantiation (2M hits at each of K2_WIDE's alphabets,
+               XDROP_EDGES at 40 codes), the traceback walk
                (one mega launch, and walk_inputs' synthetic blocks at
                WALK_EDGE_CAPS), K3 and K3b (band 512 x 1024 rows,
                4,096 anchors of the 4 Mbp pair below, forward and
@@ -32,10 +37,12 @@ Phases, one line each (any failure exits nonzero):
                recipe, seed 42: 600 conserved 2-6 kbp segments at
                72-85% identity), with every launch counter reset
                before it and a CUDA event pair around each launch of
-               K1, K2, the walk and the chain walk (the table's
-               main_path_ms), K2's consumed cells over its live walks in
-               buckets, and the walk's longest lane per launch; requires
-               launches of all four, a DevicePositionTable never fetched
+               K1 (its mega launch), K2, the walk and the chain walk
+               (the table's main_path_ms), K2's consumed cells over its
+               live walks in buckets, the walk's longest lane per
+               launch, and the chunks each mega launch ran; requires
+               launches of all four, one mega launch a call and no host
+               read in the chunk loop, a DevicePositionTable never fetched
                to the host nor uploaded again, a nonzero device gapped
                share and the seed stage on the device only, then runs
                lastz_tpu's host path (a child process, the reference) on
@@ -54,6 +61,13 @@ Phases, one line each (any failure exits nonzero):
                first launches of the main and recover paths, timed
                through its wrapper and alone (an event pair around the
                kernel)
+  batched     --twins and a quantum query on the pair's target (the
+               queries cut to TWINS_BP and QUANTUM_BP), every counter
+               reset before each: LAV byte-equal to lastz_tpu's CLI, K2
+               launched through the batched search's device branch,
+               neither host x-drop scan called, no rewind to the scalar
+               search; then the wide path, batch_xdrop_device on a
+               40-code alphabet, against the same call on CPU tensors
   4 extend     ops/ydrop_pallas.py's own path, with every counter
                reset before it: prepare_anchor_batch, then
                ydrop_extend_batch (K3) and ydrop_band_batch (K3b) on
@@ -89,6 +103,13 @@ K1_SHAPE = dict(B=128, rows=1024, W=1536)
 K2_HITS = 1 << 21
 # one production mega launch: 64 anchors x 2 directions
 TB_SHAPE = dict(Bh=64, W=1536, rows=1024, blocks=8, n=6000)
+# the mega launch's check: the main path's geometry on a 10 kbp related
+# pair, so that lanes end in their first chunk, after several, or run
+# past the 8 blocks (8,192 rows)
+MEGA_SHAPE = dict(Bh=64, W=1536, rows=1024, blocks=8, n=10_000)
+# K2's wide instantiation: alphabets of 40 codes (its table in shared
+# memory) and 256 (through the read-only cache), at K2_HITS hits
+K2_WIDE = (40, 256)
 # K3/K3b: ydrop_extend_batch's default geometry, anchors on the pair's
 # conserved segments drawn from their own seed
 K3_SHAPE = dict(band=512, max_rows=1024, anchors=4096, seed=3)
@@ -166,7 +187,8 @@ WALK_STEP_CYCLES = 30
 #   traceback: byte load, 3 mask tests, 2 coordinate steps = 6
 #   chain walk (per walked hit, simple mode): live test, compare, max,
 #           select = 4
-OPS_PER_CELL = {"ydrop_chunk": 20, "xdrop_scan": 5, "ydrop_traceback": 6,
+OPS_PER_CELL = {"ydrop_chunk": 20, "ydrop_mega": 20, "xdrop_scan": 5,
+                "xdrop_scan_wide": 5, "ydrop_traceback": 6,
                 "ydrop_wavefront": 16, "ydrop_band": 16, "resolve_chains": 4}
 # The floor of a chain walk: its longest chain, one dependent step (a
 # compare and a select on the carried extent) of about 8 cycles a hit.
@@ -461,30 +483,33 @@ def _edge_walks(case, rng):
     return [(walk, 300), (walk, v + 2)], (v + 33, 10 * v, v - 1)
 
 
-def xdrop_edge_inputs(case):
-    """One XDROP_EDGES case on a 4-code alphabet: each walk's scores are
-    laid out from its hit on the diagonal, right from p and left from
-    p - 1 alike.  Returns numpy (seq1p, seq2p, subflat, pos1, pos2, n_l,
-    n_r), x_drop and the first walk's expected (consumed, best,
+def xdrop_edge_inputs(case, K=4):
+    """One XDROP_EDGES case on a K-code alphabet (uint8 codes past 16,
+    K2's wide instantiation): each walk's scores are laid out from its
+    hit on the diagonal, right from p and left from p - 1 alike, in the
+    last four codes.  Returns numpy (seq1p, seq2p, subflat, pos1, pos2,
+    n_l, n_r), x_drop and the first walk's expected (consumed, best,
     kbest)."""
     from lastz_tpu_torch.device import SEQ_PAD
     rng = np.random.default_rng(len(case) * 100 + sum(map(ord, case)))
     hits, expect = _edge_walks(case, rng)
-    code = {10: 0, -10: 1, -500: 2, 0: 3}
-    sub = rng.integers(-150, 100, (4, 4)).astype(np.int32)
-    sub[0] = [10, -10, -500, 0]
+    b = K - 4
+    code = {10: b, -10: b + 1, -500: b + 2, 0: b + 3}
+    dtype = np.uint8 if K > 16 else np.int8
+    sub = rng.integers(-150, 100, (K, K)).astype(np.int32)
+    sub[b, b:] = [10, -10, -500, 0]
     span = max(len(w) for w, _ in hits) + 8
     L = span * (2 * len(hits) + 1)
-    s1 = rng.integers(0, 4, L).astype(np.int8)
-    s2 = rng.integers(0, 4, L).astype(np.int8)
+    s1 = rng.integers(0, K, L).astype(dtype)
+    s2 = rng.integers(0, K, L).astype(dtype)
     pos = span * (2 * np.arange(len(hits)) + 1)
     for p, (walk, _) in zip(pos, hits):
-        c = np.array([code[s] for s in walk], np.int8)
-        s1[p: p + len(c)] = 0
+        c = np.array([code[s] for s in walk], dtype)
+        s1[p: p + len(c)] = b
         s2[p: p + len(c)] = c
-        s1[p - len(c): p] = 0
+        s1[p - len(c): p] = b
         s2[p - len(c): p] = c[::-1]
-    pad = np.zeros(SEQ_PAD, np.int8)
+    pad = np.zeros(SEQ_PAD, dtype)
     n = np.array([m for _, m in hits], np.int32)
     return ((np.concatenate([pad, s1, pad]), np.concatenate([pad, s2, pad]),
              sub.reshape(-1), pos.astype(np.int32), pos.astype(np.int32), n,
@@ -600,6 +625,67 @@ def k2_setup(dev):
     return (state["seq1p"], state["seq2p"], subflat, 16, *t, 910)
 
 
+def k2_wide_setup(dev, K):
+    """k2_setup's shape on a K-code alphabet (uint8 codes, K2's wide
+    instantiation): a random pair of PAIR_BP codes, conserved (85%)
+    3 kbp in every 10 kbp on diagonal 0, a K x K table with positive
+    matches, and K2_HITS hits, half on that diagonal."""
+    import torch
+    from lastz_tpu_torch.device import SEQ_PAD
+    rng = np.random.default_rng(K)
+    n = PAIR_BP
+    s1 = rng.integers(0, K, n).astype(np.uint8)
+    s2 = np.where(rng.random(n) < 0.15, rng.integers(0, K, n), s1)
+    s2 = np.where((np.arange(n) % 10_000) < 3_000, s2,
+                  rng.integers(0, K, n)).astype(np.uint8)
+    sub = rng.integers(-60, 20, (K, K)).astype(np.int32)
+    sub[np.arange(K), np.arange(K)] = rng.integers(40, 100, K)
+    H = K2_HITS
+    pos1 = rng.integers(19, n, H)
+    pos2 = np.where(rng.random(H) < 0.5, pos1, rng.integers(19, n, H))
+    diag = pos1 - pos2
+    n_l = pos1 - np.maximum(diag, 0)
+    n_r = np.maximum(np.minimum(n, n + diag) - pos1, 0)
+    pad = np.zeros(SEQ_PAD, np.uint8)
+    t = [torch.from_numpy(a.astype(np.int32)).to(dev)
+         for a in (pos1, pos2, n_l, n_r)]
+    seqs = [torch.from_numpy(np.concatenate([pad, a, pad])).to(dev)
+            for a in (s1, s2)]
+    return (*seqs, torch.from_numpy(sub.reshape(-1)).to(dev), K, *t, 400)
+
+
+def check_k2_wide(dev):
+    """K2's wide instantiation against xdrop_scan_plain at K2_WIDE's
+    alphabets (the row from the first) and on XDROP_EDGES at K = 40."""
+    import torch
+    from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
+    from lastz_tpu_torch.ops.hitgen import xdrop_scan_plain
+    err = 0
+    rows = {}
+    for K in K2_WIDE:
+        args = k2_wide_setup(dev, K)
+        got = xdrop_scan(*args)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        s1, s2, subflat, _, p1, p2, nl, nr, xd = args
+        ref = (xdrop_scan_plain(s1, s2, subflat, K, p1 - 1, p2 - 1, nl, xd,
+                                -1),
+               xdrop_scan_plain(s1, s2, subflat, K, p1, p2, nr, xd, +1))
+        torch.cuda.synchronize()
+        plain_ms = 1000 * (time.monotonic() - t0)
+        err = max(err, same(got[0] + got[1], ref[0] + ref[1], f"K2 K={K}"))
+        ms = cuda_ms(lambda: xdrop_scan(*args), 5)
+        rows[K] = (ms, plain_ms, *k2_bytes(args, got))
+        say("kernels", kernel="xdrop_scan_wide", K=K, hits=K2_HITS, ms=ms,
+            plain_ms=plain_ms, cells=rows[K][3],
+            mean_consumed_right=float(got[1][0].float().mean()), equal=True)
+    err = max(err, check_k2_edges(dev, 40))
+    ms, plain_ms, n_bytes, cells = rows[K2_WIDE[0]]
+    extra = {f"K{K}": dict(zip(("ms", "plain_ms", "bytes", "cells"), r))
+             for K, r in rows.items()}
+    return err, ms, plain_ms, n_bytes, cells, extra
+
+
 def k2_bytes(args, got):
     """K2's bytes (inputs and outputs once) and scanned cells."""
     cells = int(got[0][0].long().sum() + got[1][0].long().sum())
@@ -617,24 +703,25 @@ def same(got, want, what):
     return err
 
 
-def check_k2_edges(dev):
-    """K2 against its plain version on XDROP_EDGES."""
+def check_k2_edges(dev, K=4):
+    """K2 against its plain version on XDROP_EDGES, on a K-code
+    alphabet."""
     import torch
     from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
     err = 0
     for case in XDROP_EDGES:
-        arrays, x_drop, expect = xdrop_edge_inputs(case)
+        arrays, x_drop, expect = xdrop_edge_inputs(case, K)
         cpu = [torch.from_numpy(a) for a in arrays]
         on = [a.to(dev) for a in cpu]
-        got = xdrop_scan(*on[:3], 4, *on[3:], x_drop)
-        want = xdrop_scan(*cpu[:3], 4, *cpu[3:], x_drop)
+        got = xdrop_scan(*on[:3], K, *on[3:], x_drop)
+        want = xdrop_scan(*cpu[:3], K, *cpu[3:], x_drop)
         err = max(err, same([a.cpu() for a in got[0] + got[1]],
                             want[0] + want[1], f"K2 edge {case}"))
         for side in want:
             if tuple(int(a[0]) for a in side) != expect:
                 raise AssertionError(f"K2 edge {case}: not {expect}")
-    say("kernels", kernel="xdrop_scan", edge_cases=len(XDROP_EDGES),
-        equal=True)
+    say("kernels", kernel="xdrop_scan" if K <= 16 else "xdrop_scan_wide",
+        K=K, edge_cases=len(XDROP_EDGES), equal=True)
     return err
 
 
@@ -661,17 +748,17 @@ def check_k2(dev):
     return (err, ms, plain_ms, *k2_bytes(args, got))
 
 
-def walk_setup(dev):
-    """The walk's table shape: the arguments of traceback_mega for one
-    production mega launch, 64 anchors on a related 6 kbp pair, both
-    directions, 8 blocks of 1024 rows over a 1536-column window."""
+def mega_setup(dev, shape, seed):
+    """The arguments and keywords of one production mega launch:
+    shape's Bh anchors on a related pair of shape's n bp (85%
+    identity), both directions, shape's blocks of rows over a W-column
+    window, the main path's y-drop and traceback cap."""
     import torch
     from lastz_tpu_torch.core.scoring import new_dna_score_set
     from lastz_tpu_torch.ops.ydrop_exact import (fresh_state_np,
-                                                 make_compact_alphabet,
-                                                 ydrop_mega)
-    rng = np.random.default_rng(11)
-    Bh, W, rows, blocks, n = (TB_SHAPE[k] for k in
+                                                 make_compact_alphabet)
+    rng = np.random.default_rng(seed)
+    Bh, W, rows, blocks, n = (shape[k] for k in
                               ("Bh", "W", "rows", "blocks", "n"))
     s1, s2 = _related_codes(rng, n, 0.85)
     sc = new_dna_score_set()
@@ -687,16 +774,90 @@ def walk_setup(dev):
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     lo = T(np.zeros(2 * Bh, np.int32))
     hi = T(np.full(2 * Bh, n, np.int32))
-    st, _, packed, tb_all, row_lo, row_hi, col0 = ydrop_mega(
-        T(code_map[s1].astype(np.int8)), T(code_map[s2].astype(np.int8)),
-        T(A1), T(A1), lo, hi, lo, hi, T(REV), T(M), T(N),
-        {k: T(v) for k, v in st_np.items()}, T(np.zeros(2 * Bh, np.int32)),
-        T(subsmall), gap_e=ge, gap_oe=goe, y_drop=9400, lanes=W, rows=rows,
-        max_blocks=blocks, alpha=16, trim_to_peak=True,
-        tb_cap=80 * 1024 * 1024)
-    cap = blocks * rows + W + 512
+    args = (T(code_map[s1].astype(np.int8)), T(code_map[s2].astype(np.int8)),
+            T(A1), T(A1), lo, hi, lo, hi, T(REV), T(M), T(N),
+            {k: T(v) for k, v in st_np.items()},
+            T(np.zeros(2 * Bh, np.int32)), T(subsmall))
+    kw = dict(gap_e=ge, gap_oe=goe, y_drop=9400, lanes=W, rows=rows,
+              max_blocks=blocks, alpha=16, trim_to_peak=True,
+              tb_cap=80 * 1024 * 1024)
+    return args, kw
+
+
+def walk_setup(dev):
+    """The walk's table shape: the arguments of traceback_mega for one
+    production mega launch (TB_SHAPE, 64 anchors on a related 6 kbp
+    pair, both directions, 8 blocks of 1024 rows over a 1536-column
+    window)."""
+    from lastz_tpu_torch.ops.ydrop_cuda import ydrop_mega
+    args, kw = mega_setup(dev, TB_SHAPE, 11)
+    st, _, packed, tb_all, row_lo, row_hi, col0 = ydrop_mega(*args, **kw)
+    cap = kw["max_blocks"] * kw["rows"] + kw["lanes"] + 512
     return (tb_all, row_lo, row_hi, col0, packed[12], st["end1"],
             st["end2"], st["done"], cap)
+
+
+def mega_bytes(args, out):
+    """The mega launch's bytes for its bound: each input read once,
+    each output written once, one link byte per band cell (the tbp the
+    lanes used; the rest of the link blocks is the zeros they arrived
+    with).  Returns (bytes, band cells)."""
+    state = args[11]
+    cells = int((out[0]["tbp"].long() - state["tbp"].long()).sum())
+    return (nbytes(*args[:11], *state.values(), args[12], args[13])
+            + nbytes(*out[0].values(), out[1], out[2], *out[4:]) + cells,
+            cells)
+
+
+def check_mega(dev):
+    """K1's mega launch against ydrop_mega_plain at MEGA_SHAPE, every
+    output (state, prev_off, packed, every link byte of every block,
+    row_lo, row_hi, col0), with link bytes and score only (the plain
+    version's state does not depend on with_tb; its score-only tb_all
+    is (B, 1, 1, 1) zeros).  Returns (max_abs_err, ms, plain ms, bytes,
+    cells, extra)."""
+    import torch
+    from lastz_tpu_torch.ops.ydrop_cuda import ydrop_mega
+    from lastz_tpu_torch.ops.ydrop_exact import ydrop_mega_plain
+    args, kw = mega_setup(dev, MEGA_SHAPE, 13)
+    got = ydrop_mega(*args, **kw)
+    score_only = ydrop_mega(*args, **kw, with_tb=False)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want = ydrop_mega_plain(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = 1000 * (time.monotonic() - t0)
+    names = ("prev_off", "packed", "tb_all", "row_lo", "row_hi", "col0")
+    B = args[2].shape[0]
+    err = 0
+    for mode, out, tb_want in (
+            ("", got, want[3]),
+            (" score-only", score_only,
+             torch.zeros((B, 1, 1, 1), dtype=torch.uint8, device=dev))):
+        for k in want[0]:
+            e = max_abs_diff(out[0][k], want[0][k])
+            if e:
+                raise AssertionError(f"mega{mode}: state[{k}] differs by {e}")
+        for name, a, b in zip(names, out[1:],
+                              (want[1], want[2], tb_want, *want[4:])):
+            e = max_abs_diff(a, b)
+            if e:
+                raise AssertionError(f"mega{mode}: {name} differs by {e}")
+            err = max(err, e)
+    ms = cuda_ms(lambda: ydrop_mega(*args, **kw), 3)
+    score_ms = cuda_ms(lambda: ydrop_mega(*args, **kw, with_tb=False), 3)
+    nblk = want[2][12].cpu()
+    done = want[0]["done"].cpu()
+    say("kernels", kernel="ydrop_mega", lanes=B, blocks=kw["max_blocks"],
+        chunks=int(nblk.max()),
+        lanes_by_chunks={int(k): int((nblk == k).sum())
+                         for k in nblk.unique()},
+        done=int(done.sum()), score_only_ms=score_ms, equal=True)
+    if not (bool((done & (nblk == 1)).any()) and bool((~done).any())):
+        raise AssertionError("mega: no lane ended in its first chunk, or "
+                             "none ran past the blocks")
+    return (err, ms, plain_ms, *mega_bytes(args, got),
+            {"score_only_ms": score_ms, "chunks": int(nblk.max())})
 
 
 def walk_bytes(args, got):
@@ -932,9 +1093,15 @@ def phase_kernels(card, pair):
             ("ydrop_chunk", lambda: check_k1(dev),
              "lastz_tpu_torch/csrc/ydrop_chunk.cu",
              "lastz_tpu/ops/ydrop_pallas_exact.py:79"),
+            ("ydrop_mega", lambda: check_mega(dev),
+             "lastz_tpu_torch/csrc/ydrop_chunk.cu",
+             "lastz_tpu/ops/ydrop_pallas_exact.py:434"),
             ("xdrop_scan", lambda: check_k2(dev),
              "lastz_tpu_torch/csrc/xdrop_scan.cu",
              "lastz_tpu/ops/xdrop_pallas.py:91"),
+            ("xdrop_scan_wide", lambda: check_k2_wide(dev),
+             "lastz_tpu_torch/csrc/xdrop_scan.cu",
+             "lastz_tpu/ops/xdrop_batch.py:199"),
             ("ydrop_traceback", lambda: check_traceback(dev),
              "lastz_tpu_torch/csrc/ydrop_traceback.cu",
              "lastz_tpu/ops/ydrop_exact.py:675"),
@@ -1056,6 +1223,7 @@ def counters():
     from lastz_tpu_torch.ops import (resolve_cuda, xdrop_cuda, ydrop_cuda,
                                      ydrop_pallas)
     return {"ydrop_chunk": ydrop_cuda.ydrop_chunk,
+            "ydrop_mega": ydrop_cuda.ydrop_mega,
             "xdrop_scan": xdrop_cuda.xdrop_scan,
             "ydrop_traceback": ydrop_cuda.traceback_mega,
             "ydrop_wavefront": ydrop_pallas.ydrop_extend_batch,
@@ -1064,19 +1232,26 @@ def counters():
 
 
 def reset_counts():
-    from lastz_tpu_torch.ops import resolve_cuda
+    from lastz_tpu_torch.ops import resolve_cuda, xdrop_cuda, ydrop_exact
     for fn in counters().values():
         fn.launches = 0
     resolve_cuda.resolve_chains.recover_launches = 0
+    xdrop_cuda.xdrop_scan.wide_launches = 0
+    ydrop_exact.ydrop_mega_plain.host_reads = 0
 
 
 def read_counts():
     """Each kernel's launches; resolve_chains_recover counts those of
-    resolve_chains in recover mode."""
-    from lastz_tpu_torch.ops import resolve_cuda
+    resolve_chains in recover mode, xdrop_scan_wide those of K2's wide
+    instantiation, and ydrop_mega_host_reads the host's any() reads of
+    the plain chunk loop (none where the mega launch runs)."""
+    from lastz_tpu_torch.ops import resolve_cuda, xdrop_cuda, ydrop_exact
     return dict({k: fn.launches for k, fn in counters().items()},
                 resolve_chains_recover=(
-                    resolve_cuda.resolve_chains.recover_launches))
+                    resolve_cuda.resolve_chains.recover_launches),
+                xdrop_scan_wide=xdrop_cuda.xdrop_scan.wide_launches,
+                ydrop_mega_host_reads=(
+                    ydrop_exact.ydrop_mega_plain.host_reads))
 
 
 @contextlib.contextmanager
@@ -1151,8 +1326,9 @@ def launch_ms(events):
                 min_ms=float(ms.min()), max_ms=float(ms.max()))
 
 
-# the main path's kernels, by the C entry point each one launches
-MAIN_ENTRIES = {"ydrop_chunk": "ydrop_chunk_launch",
+# the main path's kernels, by the C entry point each one launches (K1
+# through its mega launch)
+MAIN_ENTRIES = {"ydrop_mega": "ydrop_mega_launch",
                 "xdrop_scan": "xdrop_scan_launch",
                 "ydrop_traceback": "ydrop_traceback_launch",
                 "resolve_chains": "resolve_chains_launch"}
@@ -1197,13 +1373,14 @@ def observed(module, name, see):
 @contextlib.contextmanager
 def main_path_probes():
     """Around the main path's run: a CUDA event pair around every launch
-    of its three kernels, the histogram of K2's consumed cells over its
-    live walks (n > 0) by direction, and the walk's longest wanted lane
-    in each launch.  Yields the dict that main_path_report reads."""
+    of its kernels, the histogram of K2's consumed cells over its live
+    walks (n > 0) by direction, the walk's longest wanted lane in each
+    launch, and the chunks each mega call ran (its largest nblk).
+    Yields the dict that main_path_report reads."""
     import torch
     from lastz_tpu_torch.align import ydrop_device
     from lastz_tpu_torch.ops import xdrop_cuda
-    probes = {"hist": [], "walk_max": []}
+    probes = {"hist": [], "walk_max": [], "mega_chunks": []}
 
     def see_k2(a, kw, out):
         rows = []
@@ -1221,12 +1398,16 @@ def main_path_probes():
     def see_walk(a, kw, out):
         probes["walk_max"].append(torch.where(a[7], out[1], 0).max())
 
+    def see_mega(a, kw, out):
+        probes["mega_chunks"].append(out[2][12].max())
+
     with contextlib.ExitStack() as stack:
         for name, entry in MAIN_ENTRIES.items():
             probes[name] = stack.enter_context(timed_launches(entry))
         stack.enter_context(observed(xdrop_cuda, "xdrop_scan", see_k2))
         stack.enter_context(observed(ydrop_device, "traceback_mega",
                                      see_walk))
+        stack.enter_context(observed(ydrop_device, "ydrop_mega", see_mega))
         probes["chain_launch"] = stack.enter_context(chain_capture())
         yield probes
 
@@ -1292,6 +1473,23 @@ def main_path_report(probes, launches, card):
     say("main", kernel="ydrop_traceback", max_steps=max(walk_max),
         max_steps_per_launch=walk_max, chain_floor_ms_total=floor,
         chain_floor_ms_per_launch=floor / len(walk_max), card=card)
+    chunks = [int(c) for c in probes["mega_chunks"]]
+    mega = launch_ms(probes["ydrop_mega"])
+    say("main", kernel="ydrop_mega", mega_calls=len(chunks),
+        mega_launches=launches["ydrop_mega"], chunks_run=sum(chunks),
+        chunks_per_call=chunks,
+        host_any_reads_in_chunk_loop=launches["ydrop_mega_host_reads"],
+        chunk_entry_launches=launches["ydrop_chunk"],
+        k1_device_ms=mega["total_ms"],
+        k1_device_ms_per_chunk=mega["total_ms"] / max(sum(chunks), 1),
+        card=card)
+    if launches["ydrop_mega"] != len(chunks):
+        raise AssertionError("main path: K1's mega launches differ from the "
+                             "mega calls")
+    if launches["ydrop_mega_host_reads"] or launches["ydrop_chunk"]:
+        raise AssertionError("main path: the gapped stage ran the host "
+                             "loop of chunks")
+    mean_ms["ydrop_chunk"] = mega["total_ms"] / max(sum(chunks), 1)
     return mean_ms, floor
 
 
@@ -1593,6 +1791,142 @@ def phase_modes(card, pair):
     return out, recover_launch
 
 
+# the batched seed search's runs on the main path's target: twin seed
+# hits, and a quantum query (the pair's query as quantum DNA, scored
+# with QSCORES), each query cut to its *_BP so that lastz_tpu's host run
+# of it takes about a minute.  The twin spans start at -19 (a span of a
+# seed's length: consecutive hits on one diagonal are twins) and the
+# seed queue holds every hit: with larger minima a conserved segment's
+# run of consecutive hits fills a hash's 32-entry ring, and with the
+# default queue an entry ages out, and either makes lastz_tpu's batched
+# twin resolution (and the port's) hand the search to the scalar engine
+TWINS_OPTIONS = ["--twins=-19..200", "--seedqueue=67108864"]
+TWINS_BP = 2_000_000
+QUANTUM_BP = 250_000
+QSCORES = os.path.join(ROOT, "tests", "golden", "quantum", "qscores.txt")
+# the wide path: batch_xdrop_device on an alphabet of K codes (K2's wide
+# instantiation), `hits` hits of a related pair of `bp` bases
+WIDE_PATH = dict(K=40, bp=1_000_000, hits=1 << 18, x_drop=400)
+
+
+def write_qdna(tdir, seq):
+    """seq (ACGT bytes) as a quantum DNA file, A, C, G and T as the
+    bytes 1 to 4 of QSCORES' alphabet, written by lastz_tpu's
+    any_to_qdna in a child process; returns the query's specifier."""
+    code = np.zeros(256, np.uint8)
+    code[list(b"ACGT")] = [1, 2, 3, 4]
+    path = os.path.join(tdir, "q.qdna")
+    with open(path, "wb") as f:
+        subprocess.run([sys.executable, "-m", "lastz_tpu.tools.any_to_qdna",
+                        "--striplinebreaks"], input=code[seq].tobytes(),
+                       stdout=f, check=True, cwd=ROOT)
+    return f"{path}[quantum]"
+
+
+@contextlib.contextmanager
+def batched_calls():
+    """Counts, inside the block, the calls of the batched search's
+    x-drop scans (the device one and the two host ones) and the twin
+    resolution's rewinds to the scalar search; yields the dict."""
+    from lastz_tpu_torch.ops import xdrop_batch
+    from lastz_tpu_torch.search import twins
+    calls = {}
+    with contextlib.ExitStack() as stack:
+        for mod, name in ((xdrop_batch, "batch_xdrop_device"),
+                          (xdrop_batch, "batch_xdrop_native"),
+                          (xdrop_batch, "batch_xdrop_np"),
+                          (twins, "restore")):
+            calls[name] = 0
+            stack.enter_context(observed(
+                mod, name, lambda a, kw, out, name=name:
+                calls.__setitem__(name, calls[name] + 1)))
+        yield calls
+
+
+def phase_batched(card, pair):
+    """--twins and a quantum query on the main path's target, each query
+    cut (TWINS_BP, QUANTUM_BP), every counter at 0 before each: LAV
+    byte-equal to lastz_tpu's CLI (its host path, a child process), K2
+    launched through the batched search's device branch, no host x-drop
+    scan, no rewind to the scalar search; then the wide path
+    (wide_path).  Returns each run's launches."""
+    from lastz_tpu_torch import device
+    out = {}
+    with tempfile.TemporaryDirectory() as tdir:
+        t, q, _ = pair
+        tp = os.path.join(tdir, "t.fa")
+        _write_fasta(tp, "t", t)
+        qp = os.path.join(tdir, "q.fa")
+        _write_fasta(qp, "q", q[:TWINS_BP])
+        runs = [("twins", [tp, qp, *TWINS_OPTIONS], TWINS_BP),
+                ("quantum", [tp, write_qdna(tdir, q[:QUANTUM_BP]),
+                             f"Q={QSCORES}"], QUANTUM_BP)]
+        for name, argv, query_bp in runs:
+            device._CACHE.clear()
+            port_out = os.path.join(tdir, f"{name}.lav")
+            port_s, launches, st, _, (calls,) = run_port(argv, port_out,
+                                                         batched_calls())
+            say(name, options=argv[2:], target_bp=len(t), query_bp=query_bp,
+                wall_s=port_s, launches=launches, batched_calls=calls,
+                hsps=st.hsps, gapped_device=st.gapped_device,
+                timers={k: round(v, 3) for k, v in st.timers.items()},
+                card=card)
+            if (launches["xdrop_scan"] <= 0 or calls["batch_xdrop_device"] <= 0
+                    or calls["batch_xdrop_native"] or calls["batch_xdrop_np"]
+                    or calls["restore"]):
+                raise AssertionError(f"{name}: the batched search did not "
+                                     f"run on the device only: {calls}")
+            host_out = os.path.join(tdir, f"{name}.host.lav")
+            host_s = run_host(argv, host_out)
+            a, b = read_bytes(port_out), read_bytes(host_out)
+            say(name, run="lastz_tpu.cli host", wall_s=host_s,
+                lav_bytes=[len(a), len(b)], lav_equal=a == b, card=card)
+            if a != b or b"a {" not in b:
+                raise AssertionError(f"{name}: port LAV differs from "
+                                     f"lastz_tpu's (or holds no alignment)")
+            out[name] = launches
+    out["wide"] = wide_path(card)
+    return out
+
+
+def wide_path(card):
+    """The batched search's x-drop through its entry point,
+    batch_xdrop_device, on an alphabet of WIDE_PATH's K codes (K2's wide
+    instantiation), with every counter at 0 before it: results equal to
+    the same call on CPU tensors (the plain version).  Returns its
+    launches."""
+    import torch
+    from lastz_tpu_torch.ops.xdrop_batch import batch_xdrop_device
+    K, n, H, x_drop = (WIDE_PATH[k] for k in ("K", "bp", "hits", "x_drop"))
+    rng = np.random.default_rng(K)
+    sym = np.arange(33, 33 + K - 1, dtype=np.uint8)  # and NUL: K codes
+    s1 = sym[rng.integers(0, K - 1, n)]
+    s2 = np.where(rng.random(n) < 0.15, sym[rng.integers(0, K - 1, n)], s1)
+    s2 = np.where((np.arange(n) % 10_000) < 3_000, s2,
+                  sym[rng.integers(0, K - 1, n)]).astype(np.uint8)
+    sub = rng.integers(-60, 20, (256, 256)).astype(np.int64)
+    sub[sym, sym] = rng.integers(40, 100, K - 1)
+    pos1 = rng.integers(19, n, H)
+    pos2 = np.where(rng.random(H) < 0.5, pos1, rng.integers(19, n, H))
+    reset_counts()
+    t0 = time.monotonic()
+    got = batch_xdrop_device(s1, s2, sub, pos1, pos2, x_drop,
+                             torch.device("cuda"))
+    wall_s = time.monotonic() - t0
+    launches = read_counts()
+    require_launched(launches, ("xdrop_scan", "xdrop_scan_wide"))
+    want = batch_xdrop_device(s1, s2, sub, pos1, pos2, x_drop,
+                              torch.device("cpu"))
+    equal = all(np.array_equal(got[k], want[k]) for k in want)
+    say("wide", K=K, bp=n, hits=H, wall_s=wall_s, launches=launches,
+        mean_right_consumed=float(got["right_consumed"].mean()),
+        equal=equal, card=card)
+    if not equal:
+        raise AssertionError("wide: batch_xdrop_device on the card differs "
+                             "from its plain version")
+    return launches
+
+
 def phase_index(card, pair):
     """The device build of the position table against the host build,
     on the main path's target and on an INDEX_BP target with lowercase
@@ -1715,21 +2049,35 @@ def main(argv=None):
     launches, main_ms, walk_floor, main_chain = phase_main(card, pair,
                                                            args.parent)
     mode_launches, recover_chain = phase_modes(card, pair)
+    batched_launches = phase_batched(card, pair)
     rows.append(chain_row(card, chain_err, main_chain, recover_chain))
     launches.update({k: v for k, v in phase_extend(card, pair, refs).items()
                      if k in ("ydrop_wavefront", "ydrop_band")})
     # main_path_ms: the mean device ms of a launch on the main path (K1,
     # K2, the walk, the chain walk); the walk's chain floors are at the
     # table's shape and summed over its main-path launches
+    # K1 runs on the main path as its mega launch: its row's launches are
+    # those, and its main_path_ms the mega launches' device ms over the
+    # chunks they ran; the chunk entry's own launches stand beside them.
+    # K2's wide instantiation counts its launches on the wide path.
     for r in rows:
-        r["launches"] = launches[r["name"]]
-        if r["name"] in main_ms:
-            r["main_path_ms"] = main_ms[r["name"]]
-        if r["name"] == "ydrop_traceback":
+        name = r["name"]
+        r["launches"] = launches[name]
+        if name == "ydrop_chunk":
+            r["launches"] = launches["ydrop_mega"]
+            r["chunk_entry_launches"] = launches["ydrop_chunk"]
+        if name == "xdrop_scan_wide":
+            r["launches"] = batched_launches["wide"]["xdrop_scan_wide"]
+        if name in main_ms:
+            r["main_path_ms"] = main_ms[name]
+        if name == "ydrop_traceback":
             r["main_path_chain_floor_ms"] = walk_floor
-        if r["name"] in ("xdrop_scan", "resolve_chains"):
+        if name in ("xdrop_scan", "resolve_chains"):
             r["launches_by_seed_mode"] = {
-                k: v[r["name"]] for k, v in mode_launches.items()}
+                k: v[name] for k, v in mode_launches.items()}
+        if name == "xdrop_scan":
+            r["launches_by_batched_mode"] = {
+                k: v["xdrop_scan"] for k, v in batched_launches.items()}
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

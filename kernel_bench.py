@@ -6,6 +6,7 @@ NVIDIA card.
                              |resolve_chains|ydrop_wavefront]
                             --other NAME=SRC.cu [--other NAME=SRC.cu ...]
                             [--prefilled NAME]
+    python3 kernel_bench.py --kernel ydrop_mega
 
 --kernel (default ydrop_chunk, K1) names the kernel by its wrapper's
 counter name in chip_smoke.py: K1, K2 (x-drop scan), the traceback
@@ -20,7 +21,8 @@ reversed) on the same inputs:
 
   cases    the kernel's shapes in chip_smoke.py, timed as chip_smoke.py
            times them (CUDA events over the wrapper, and the kernel
-           alone: its C call replayed back to back, replay_ms): K1 the first
+           alone: its C call replayed back to back, replay_ms, for all
+           but K2, whose scratch counters must arrive zeroed): K1 the first
            chunk of each K1_TIMED case, K2 k2_setup's 2M hits, the walk
            walk_setup's mega launch, the chain walk the first launch of
            the 4 Mbp main path and of its --recoverseeds run, K3
@@ -30,6 +32,17 @@ reversed) on the same inputs:
            walk also with --recoverseeds) with a CUDA event pair around
            every launch of the kernel; the builds' LAV must be equal.
            K3 is off the CLI and has none
+
+K2's cases include its wide instantiation (K2_WIDE's alphabets), which
+only the package's build has: those cases time the package alone.
+
+--kernel ydrop_mega times K1's mega launch against the loop it replaced
+(chunk_loop: one K1 chunk launch per chunk, the host reading the lanes'
+done flags before each, windows gathered by torch ops), in turns (loop,
+mega, mega, loop): at chip_smoke.py's MEGA_SHAPE, and per call on the
+4 Mbp main path (an event pair and the host clock around each call of
+ydrop_device.ydrop_mega); outputs and LAV must be equal.  It takes no
+--other.
 
 A chain walk older than this package's (a parent's source) wrote only
 the hits it walked into outputs its wrapper had filled; --prefilled
@@ -123,14 +136,20 @@ def k1_cases(dev):
 
 
 def k2_cases(dev):
+    """K2 at k2_setup's shape, then its wide instantiation at each of
+    K2_WIDE's alphabets (a case with its own C entry point)."""
     from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
-    args = cs.k2_setup(dev)
+    out = []
+    for name, args, entry in [("table", cs.k2_setup(dev), None)] + [
+            (f"wide{K}", cs.k2_wide_setup(dev, K), "xdrop_scan_wide_launch")
+            for K in cs.K2_WIDE]:
+        def run(args=args):
+            left, right = xdrop_scan(*args)
+            return [*left, *right]
 
-    def run():
-        left, right = xdrop_scan(*args)
-        return [*left, *right]
-
-    return [("table", run, 5, *cs.k2_bytes(args, xdrop_scan(*args)))]
+        out.append((name, run, 5, *cs.k2_bytes(args, xdrop_scan(*args)),
+                    entry))
+    return out
 
 
 def walk_cases(dev):
@@ -189,6 +208,9 @@ def k3_cases(dev):
     return out
 
 
+# kernels whose C call cannot be replayed as it was made: K2's counters
+# must arrive zeroed, and a replay would run its queue past its end
+NO_REPLAY = {"xdrop_scan"}
 # kernel: (C entry point, its cases, its runs on the CLI's path: the
 # options of each, or None for a kernel off it)
 KERNELS = {"ydrop_chunk": ("ydrop_chunk_launch", k1_cases, [[]]),
@@ -221,10 +243,20 @@ def prefilled(fn):
 
 
 def time_cases(kernel, builds, order, card):
-    """Each case of the kernel, every build in turns."""
+    """Each case of the kernel, every build in turns; a case with a C
+    entry point of its own times the package's build alone."""
     import torch
-    entry, cases, _ = KERNELS[kernel]
-    for name, run, reps, n_bytes, cells in cases(torch.device("cuda")):
+    from lastz_tpu_torch.kernels import build
+    own_entry, cases, _ = KERNELS[kernel]
+    all_builds, all_order = builds, order
+    for name, run, reps, n_bytes, cells, *case_entry in cases(
+            torch.device("cuda")):
+        entry = own_entry
+        builds, order = all_builds, all_order
+        if case_entry and case_entry[0]:
+            entry = case_entry[0]
+            builds = {"package": getattr(build.load(), entry)}
+            order = ["package", "package"]
         bound_ms, bound_by = cs.bound(kernel, n_bytes, cells)
         ref = run()
         for bname, fn in builds.items():
@@ -239,7 +271,8 @@ def time_cases(kernel, builds, order, card):
         for bname in order:
             with cs.timed_launches(entry, fn=builds[bname]):
                 times[bname].append(cs.cuda_ms(run, reps))
-            alone[bname].append(replay(entry, builds[bname], run))
+            if kernel not in NO_REPLAY:
+                alone[bname].append(replay(entry, builds[bname], run))
         cs.say("kernel_bench", kernel=kernel, case=name, cells=cells,
                bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
                order=order, ms=times, kernel_alone_ms=alone, card=card)
@@ -287,11 +320,131 @@ def time_main(kernel, builds, order, card, opts=()):
         raise AssertionError("the builds wrote different LAV")
 
 
+def chunk_loop(v1c, v2c, a1, a2, low1, high1, low2, high2, rev, M, N,
+               state, prev_off0, subsmall, *, gap_e, gap_oe, y_drop, lanes,
+               rows, max_blocks, alpha, trim_to_peak, tb_cap, with_tb=True):
+    """ydrop_mega as the gapped stage ran it before the mega launch: a
+    host loop of K1 chunk launches, one read of any(~done) on the host
+    and the window gather's torch ops before each, link bytes written in
+    place into the block of tb_all."""
+    import torch
+    from lastz_tpu_torch.ops.ydrop_cuda import ydrop_chunk
+    from lastz_tpu_torch.ops.ydrop_exact import gather_windows, pack_scalars
+    i32 = torch.int32
+    dev = v1c.device
+    B = a1.shape[0]
+    kw = dict(gap_e=gap_e, gap_oe=gap_oe, y_drop=y_drop, lanes=lanes,
+              rows=rows, alpha=alpha, trim_to_peak=trim_to_peak,
+              tb_cap=tb_cap)
+    st = dict(state)
+    prev_off = prev_off0.to(i32)
+    nblk = torch.zeros(B, dtype=i32, device=dev)
+    tb_all = torch.zeros((B, max_blocks, rows + 1, lanes) if with_tb
+                         else (B, 1, 1, 1), dtype=torch.uint8, device=dev)
+    row_lo = torch.zeros((B, max_blocks), dtype=i32, device=dev)
+    row_hi = torch.zeros_like(row_lo)
+    col0 = torch.zeros_like(row_lo)
+    for k in range(max_blocks):
+        active = ~st["done"]
+        if not bool(active.any()):
+            break
+        row_base = st["row"] - 1
+        b_off = torch.where(st["done"], prev_off, st["LY"])
+        a_win, b_win = gather_windows(v1c, v2c, a1, a2, low1, high1, low2,
+                                      high2, rev, row_base, b_off, rows,
+                                      lanes)
+        st, _ = ydrop_chunk(a_win, b_win, b_off, b_off - prev_off, M, N, st,
+                            subsmall, tb_out=tb_all[:, k] if with_tb
+                            else None, want_tb=with_tb, **kw)
+        row_lo[:, k] = torch.where(active, row_base + 1, 0)
+        row_hi[:, k] = torch.where(active, st["rows_used"], 0)
+        col0[:, k] = torch.where(active, b_off, 0)
+        nblk += active.to(i32)
+        prev_off = b_off
+    return st, prev_off, pack_scalars(st, nblk), tb_all, row_lo, row_hi, col0
+
+
+def mega_bench(card):
+    """--kernel ydrop_mega: the mega launch and chunk_loop in turns, at
+    MEGA_SHAPE and per call on the 4 Mbp main path."""
+    import torch
+    from lastz_tpu_torch import cli
+    from lastz_tpu_torch.align import ydrop_device
+    from lastz_tpu_torch.ops.ydrop_cuda import ydrop_mega
+    impls = {"chunk_loop": chunk_loop, "mega": ydrop_mega}
+    order = ["chunk_loop", "mega", "mega", "chunk_loop"]
+    dev = torch.device("cuda")
+    args, kw = cs.mega_setup(dev, cs.MEGA_SHAPE, 13)
+    outs = {n: fn(*args, **kw) for n, fn in impls.items()}
+    for a, b in zip(outs["mega"][1:], outs["chunk_loop"][1:]):
+        if not torch.equal(a, b):
+            raise AssertionError("the mega launch and the chunk loop differ")
+    n_bytes, cells = cs.mega_bytes(args, outs["mega"])
+    bound_ms, bound_by = cs.bound("ydrop_mega", n_bytes, cells)
+    ms = {n: [] for n in impls}
+    wall = {n: [] for n in impls}
+    for n in order:
+        ms[n].append(cs.cuda_ms(lambda: impls[n](*args, **kw), 3))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        impls[n](*args, **kw)
+        torch.cuda.synchronize()
+        wall[n].append(1000 * (time.monotonic() - t0))
+    cs.say("kernel_bench", kernel="ydrop_mega", case="table",
+           shape=cs.MEGA_SHAPE, chunks=int(outs["mega"][2][12].max()),
+           cells=cells, bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
+           order=order, ms=ms, host_ms=wall, card=card)
+    os.environ["LASTZ_TORCH_DEVICE"] = "cuda"
+    with tempfile.TemporaryDirectory() as tdir:
+        tp, qp, _, _ = cs.write_pair(tdir, cs.make_pair())
+        lav = {}
+        for i, n in enumerate(order):
+            calls = []
+
+            def timed(*a, n=n, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t0 = time.monotonic()
+                e0.record()
+                out = impls[n](*a, **k)
+                e1.record()
+                calls.append((e0, e1, t0, out[2][12].max()))
+                return out
+
+            own = ydrop_device.ydrop_mega
+            ydrop_device.ydrop_mega = timed
+            out = os.path.join(tdir, f"{i}.lav")
+            t0 = time.monotonic()
+            try:
+                with open(out, "w") as f, contextlib.redirect_stdout(f), \
+                        contextlib.redirect_stderr(io.StringIO()):
+                    rc = cli.main([tp, qp])
+            finally:
+                ydrop_device.ydrop_mega = own
+            torch.cuda.synchronize()
+            wall_s = time.monotonic() - t0
+            if rc != 0:
+                raise RuntimeError(f"the port's CLI exited {rc}")
+            with open(out, "rb") as f:
+                lav[i] = f.read()
+            dms = np.array([a.elapsed_time(b) for a, b, _, _ in calls])
+            cs.say("kernel_bench", kernel="ydrop_mega", run="main", impl=n,
+                   calls=len(calls),
+                   chunks=sum(int(c) for *_, c in calls),
+                   device_ms_per_call=float(dms.mean()),
+                   device_ms_total=float(dms.sum()), wall_s=wall_s,
+                   card=card)
+    if len(set(lav.values())) != 1:
+        raise AssertionError("the mega launch and the chunk loop wrote "
+                             "different LAV")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=list(KERNELS), default="ydrop_chunk",
+    ap.add_argument("--kernel", choices=list(KERNELS) + ["ydrop_mega"],
+                    default="ydrop_chunk",
                     help="the kernel to time (default K1, ydrop_chunk)")
-    ap.add_argument("--other", action="append", required=True,
+    ap.add_argument("--other", action="append", default=[],
                     help="NAME=SRC.cu: another source of the kernel")
     ap.add_argument("--prefilled", action="append", default=[],
                     help="NAME of an --other chain walk that needs its "
@@ -305,6 +458,13 @@ def main(argv=None):
     from lastz_tpu_torch.kernels import build
     card = cs.card_line()
     print(card, flush=True)
+    if args.kernel == "ydrop_mega":
+        if args.other:
+            ap.error("--kernel ydrop_mega takes no --other")
+        mega_bench(card)
+        return 0
+    if not args.other:
+        ap.error("--other is required")
     entry, _, main_runs = KERNELS[args.kernel]
     others = [tuple(spec.split("=", 1)) for spec in args.other]
     with tempfile.TemporaryDirectory() as tdir:

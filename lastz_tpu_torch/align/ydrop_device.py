@@ -1,5 +1,6 @@
 """Device-batched gapped extension: the glue between K1 (through
-ops/ydrop_exact.ydrop_mega) and the sequential accept loop of
+its mega launch, ops/ydrop_cuda.ydrop_mega) and the sequential accept
+loop of
 gapped_extend (align/ydrop.py; reference gapped_extend.c:1012).
 
 Port of lastz_tpu/align/ydrop_device.py::DeviceYDrop.  Anchors are
@@ -28,11 +29,10 @@ import torch
 
 from .. import stats as _stats
 from ..device import upload_codes
-from ..ops.ydrop_cuda import traceback_mega
+from ..ops.ydrop_cuda import traceback_mega, ydrop_mega
 from .edit_script import EditScript
 from ..ops.ydrop_exact import (MAX_COMP_GAP_E, ST_TRUNCATED,
-                               fresh_state_np, make_compact_alphabet,
-                               ydrop_mega)
+                               fresh_state_np, make_compact_alphabet)
 
 DEFAULT_WIDTH = 768
 DEFAULT_ROWS = 1024

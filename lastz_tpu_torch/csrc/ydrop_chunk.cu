@@ -5,6 +5,14 @@
 // ydrop_chunk_pallas); computes what ops/ydrop_exact.ydrop_chunk_plain
 // computes, state for state and link byte for link byte.
 //
+// A second entry point, ydrop_mega_launch, replaces the device
+// while_loop of ydrop_mega_pallas (lastz_tpu/ops/ydrop_pallas_exact.py
+// :434): each lane's warp runs its chunks back to back through the same
+// row body (run_chunk), gathering each chunk's codes itself, so a batch
+// of lanes costs one launch and no host read between chunks, and a
+// lane waits on no other lane between chunks.  It computes what
+// ops/ydrop_exact.ydrop_mega_plain computes.
+//
 // What bounds it on an H100: latency.  A DP row depends on the one
 // before it, and a chunk is up to 1024 rows of one lane, so a launch
 // lasts as long as its slowest lane's chain of rows.  A row's work is
@@ -358,83 +366,106 @@ __device__ __forceinline__ int sweep(int c0, int width, const Row& x,
              : sweep_band<WIDE_CPT, TRIM>(c0, x, a, s_cc, s_dd, s_bc, tbrow);
 }
 
+
+// A lane's 13 scalars (ops/ydrop_exact.SCALAR_KEYS order).
+struct Lane {
+  int LY, RY, row, best, end1, end2, bscore, bflag, tbp, rows_used, maxRY,
+      status, done;
+};
+
+__device__ __forceinline__ Lane load_lane(const int* p) {
+  Lane s;
+  s.LY = p[S_LY];
+  s.RY = p[S_RY];
+  s.row = p[S_ROW];
+  s.best = p[S_BEST];
+  s.end1 = p[S_END1];
+  s.end2 = p[S_END2];
+  s.bscore = p[S_BSCORE];
+  s.bflag = p[S_BFLAG];
+  s.tbp = p[S_TBP];
+  s.rows_used = p[S_ROWS_USED];
+  s.maxRY = p[S_MAXRY];
+  s.status = p[S_STATUS];
+  s.done = p[S_DONE];
+  return s;
+}
+
+__device__ __forceinline__ void store_lane(int* p, const Lane& s) {
+  p[S_LY] = s.LY;
+  p[S_RY] = s.RY;
+  p[S_ROW] = s.row;
+  p[S_BEST] = s.best;
+  p[S_END1] = s.end1;
+  p[S_END2] = s.end2;
+  p[S_BSCORE] = s.bscore;
+  p[S_BFLAG] = s.bflag;
+  p[S_TBP] = s.tbp;
+  p[S_ROWS_USED] = s.rows_used;
+  p[S_MAXRY] = s.maxRY;
+  p[S_STATUS] = s.status;
+  p[S_DONE] = s.done;
+}
+
+// The lane's shared memory: CC, DD and b codes (int), the chunk's row
+// codes (bytes), and the score table.
+struct Smem {
+  int* cc;
+  int* dd;
+  int* bc;
+  unsigned char* ar;
+  const int* sub;
+};
+
+__device__ __forceinline__ Smem carve(int* smem, const int* s_sub, int W) {
+  Smem m;
+  m.cc = smem;
+  m.dd = m.cc + W;
+  m.bc = m.dd + W;
+  m.ar = reinterpret_cast<unsigned char*>(m.bc + W);
+  m.sub = s_sub;
+  return m;
+}
+
+// One chunk of one lane: up to `rows` DP rows from the lane's state `s`
+// over the window in shared memory (CC/DD already re-anchored to b_off,
+// the window's b codes and the chunk's row codes loaded), the link
+// bytes of local row r + 1 at tbl + (r + 1) * W (tbl == nullptr: none).
+// On return CC/DD hold the plain version's whole-window values: NEG
+// outside the last row's written range once a row ran.  The row body
+// of both K1 entry points.
 template <bool TRIM>
-__global__ void __launch_bounds__(32)
-ydrop_chunk_kernel(const int* __restrict__ a_small,
-                   const int* __restrict__ b_small,
-                   const int* __restrict__ b_off_a,
-                   const int* __restrict__ shift_a,
-                   const int* __restrict__ M_a, const int* __restrict__ N_a,
-                   int* __restrict__ CCg, int* __restrict__ DDg,
-                   int* __restrict__ sc, const int* __restrict__ subsmall,
-                   unsigned char* __restrict__ tb, long long tb_lane_stride,
-                   int W, int rows, int gap_e, int gap_oe, int y_drop,
-                   int tb_cap, int tail) {
-  extern __shared__ int smem[];
-  __shared__ int s_sub[256];
-
-  const int wl = threadIdx.x;
-  const int lane_id = blockIdx.x;
-  for (int i = wl; i < 256; i += 32) s_sub[i] = subsmall[i];
-
-  int* s_cc = smem;
-  int* s_dd = s_cc + W;
-  int* s_bc = s_dd + W;
-  unsigned char* s_ar = reinterpret_cast<unsigned char*>(s_bc + W);
-
-  int* scl = sc + (long long)lane_id * NS;
-  int LY = scl[S_LY], RY = scl[S_RY], row = scl[S_ROW];
-  int best = scl[S_BEST], end1 = scl[S_END1], end2 = scl[S_END2];
-  int bscore = scl[S_BSCORE], bflag = scl[S_BFLAG], tbp = scl[S_TBP];
-  int rows_used = scl[S_ROWS_USED], maxRY = scl[S_MAXRY];
-  int status = scl[S_STATUS], done = scl[S_DONE];
-  const int b_off = b_off_a[lane_id];
-  const int M = M_a[lane_id];
-  const int N = N_a[lane_id];
-  const int sh = min(max(shift_a[lane_id], 0), W);
-
-  int* ccl = CCg + (long long)lane_id * W;
-  int* ddl = DDg + (long long)lane_id * W;
-  const int* bl = b_small + (long long)lane_id * W;
-
-  // window re-anchor: lane l takes old lane l + shift, NEG past the end
-  for (int l = wl; l < W; l += 32) {
-    const int src = l + sh;
-    s_cc[l] = src < W ? ccl[src] : NEG;
-    s_dd[l] = src < W ? ddl[src] : NEG;
-    s_bc[l] = bl[l] & 15;
-  }
-  for (int i = wl; i < rows; i += 32)
-    s_ar[i] = (unsigned char)(a_small[(long long)lane_id * rows + i] & 15);
-  __syncwarp();  // the score table, window and row codes precede any row
-
-  unsigned char* tbl = tb ? tb + (long long)lane_id * tb_lane_stride
-                          : nullptr;
+__device__ __forceinline__ void run_chunk(Lane& s, const Smem& m, int b_off,
+                                          int M, int N, int W, int rows,
+                                          unsigned char* tbl, int gap_e,
+                                          int gap_oe, int y_drop, int tb_cap,
+                                          int tail) {
+  const int wl = threadIdx.x & 31;
   const double inv_ge = gap_e > 0 ? 1.0 / gap_e : 0.0;
-  int stopped = done;
+  int stopped = s.done;
   bool ran = false;
   int lo_w = 0, hi_w = 0;  // the last row's written range
 
-  int acode = s_ar[0];
+  int acode = m.ar[0];
   for (int r = 0; r < rows; ++r) {
     if (stopped) break;
     // truncation check (gapped_extend.c:3621-3660): break BEFORE the row
-    if (wadd(tbp, wadd(max(wsub(RY, LY), 0), tail)) >= tb_cap) {
-      status |= ST_TRUNCATED;
-      done = 1;
+    if (wadd(s.tbp, wadd(max(wsub(s.RY, s.LY), 0), tail)) >= tb_cap) {
+      s.status |= ST_TRUNCATED;
+      s.done = 1;
       break;
     }
     unsigned char* tbrow = tbl ? tbl + (long long)(r + 1) * W : nullptr;
     Row x;
-    x.srow = s_sub + acode * 16;
-    acode = s_ar[min(r + 1, rows - 1)];  // read a row ahead
-    x.LYr = wsub(LY, b_off);
-    const int RYr = wsub(RY, b_off);
+    x.srow = m.sub + acode * 16;
+    acode = m.ar[min(r + 1, rows - 1)];  // read a row ahead
+    x.LYr = wsub(s.LY, b_off);
+    const int RYr = wsub(s.RY, b_off);
     x.cend = min(RYr, W);
     x.ci = min(max(wsub(RYr, 1), 0), W - 1);
-    x.best = best;
+    x.best = s.best;
     x.colN = wsub(N, b_off);
-    x.rowM = row == M;
+    x.rowM = s.row == M;
     x.gap_e = gap_e;
     x.gap_oe = gap_oe;
     x.y_drop = y_drop;
@@ -462,7 +493,7 @@ ydrop_chunk_kernel(const int* __restrict__ a_small,
       // no live column: ci lies left of LYr (a reset) or is inactive
       i_exit_raw = x.ci < x.LYr ? wadd(NEG, wmul(x.ci + 1, gap_e)) : ISENT;
     } else {
-      i_exit_raw = sweep<TRIM>(c0, width, x, a, s_cc, s_dd, s_bc, tbrow);
+      i_exit_raw = sweep<TRIM>(c0, width, x, a, m.cc, m.dd, m.bc, tbrow);
     }
 
     // row reductions: the maxima, then the last column reaching each
@@ -479,37 +510,37 @@ ydrop_chunk_kernel(const int* __restrict__ a_small,
 
     // best / end / boundary (the boundary update runs after best
     // within a cell, so it wins at or past the best column)
-    const bool fires_best = anyel && rmax >= best;
-    const bool fires_b = anyb && bmax >= bscore;
+    const bool fires_best = anyel && rmax >= s.best;
+    const bool fires_b = anyb && bmax >= s.bscore;
     const bool use_b = fires_b && (!fires_best || kb >= kbest);
     const bool use_best = fires_best && !use_b;
-    if (use_b || use_best) end1 = row;
+    if (use_b || use_best) s.end1 = s.row;
     if (use_b) {
-      end2 = wadd(b_off, kb);
-      bflag = 1;
+      s.end2 = wadd(b_off, kb);
+      s.bflag = 1;
     } else if (use_best) {
-      end2 = wadd(b_off, kbest);
-      bflag = 0;
+      s.end2 = wadd(b_off, kbest);
+      s.bflag = 0;
     }
-    if (fires_best) best = rmax;
-    if (fires_b) bscore = bmax;
+    if (fires_best) s.best = rmax;
+    if (fires_b) s.bscore = bmax;
 
     // LY advance, RY shrink or prolongation (host ydrop.py:538-559)
     const int first_live = firstl != BIG ? firstl : RYr;
     const int LYn = wadd(b_off, first_live);
     const int np_col = wadd(b_off, npk);
-    const bool dead = LYn >= RY;
-    const int K = wsub(RY, LY);
+    const bool dead = LYn >= s.RY;
+    const int K = wsub(s.RY, s.LY);
     const int i_exit = wsub(i_exit_raw, wmul(RYr, gap_e));
-    const bool shrink = RY > wadd(np_col, 1);
-    const int thresh = wsub(best, y_drop);
+    const bool shrink = s.RY > wadd(np_col, 1);
+    const int thresh = wsub(s.best, y_drop);
     const int p_raw =
         gap_e > 0 ? wadd(floordiv_pos(wsub(i_exit, thresh), gap_e, inv_ge), 1)
         : gap_e ? wadd(floordiv(wsub(i_exit, thresh), gap_e), 1)
                 : BIG;
-    const int p_hi = max(wsub(wadd(N, 1), RY), 0);
+    const int p_hi = max(wsub(wadd(N, 1), s.RY), 0);
     const int p = (shrink || i_exit < thresh) ? 0 : min(max(p_raw, 0), p_hi);
-    const int RYs = shrink ? wadd(np_col, 1) : wadd(RY, p);
+    const int RYs = shrink ? wadd(np_col, 1) : wadd(s.RY, p);
     const bool has_sent = RYs <= N;
     const int RYf = wadd(RYs, has_sent ? 1 : 0);
     const int sent_l = wsub(RYs, b_off);
@@ -523,49 +554,229 @@ ydrop_chunk_kernel(const int* __restrict__ a_small,
       const int pj = wsub(l, RYr);
       const bool prolong = pj < p && !(has_sent && l == sent_l);
       const int pro = wsub(i_exit, wmul(pj, gap_e));
-      s_cc[l] = prolong ? pro : NEG;
-      s_dd[l] = prolong ? wsub(pro, gap_oe) : NEG;
+      m.cc[l] = prolong ? pro : NEG;
+      m.dd[l] = prolong ? wsub(pro, gap_oe) : NEG;
       if (tbrow) tbrow[l] = (unsigned char)(prolong ? C_FROM_I : 0);
     }
     __syncwarp();  // this row's shared writes precede the next row's reads
 
     const bool window_end = wsub(RYf, b_off) > W;
     const bool width_over = wsub(RYf, LYn) > W || wadd(K, p) > W;
-    if (width_over && !dead) status |= ST_WIDTH_OVERFLOW;
-    if (dead || row >= M || width_over) done = 1;
-    stopped = done || window_end;
+    if (width_over && !dead) s.status |= ST_WIDTH_OVERFLOW;
+    if (dead || s.row >= M || width_over) s.done = 1;
+    stopped = s.done || window_end;
     ran = true;
     lo_w = lo;
     hi_w = hi;
-    LY = LYn;
-    RY = RYf;
-    rows_used = row;
-    row = wadd(row, 1);
-    tbp = wadd(wadd(tbp, K), p);
-    maxRY = max(maxRY, RYf);
+    s.LY = LYn;
+    s.RY = RYf;
+    s.rows_used = s.row;
+    s.row = wadd(s.row, 1);
+    s.tbp = wadd(wadd(s.tbp, K), p);
+    s.maxRY = max(s.maxRY, RYf);
   }
 
-  // CC/DD out over the whole window: NEG outside the last row's range
+  // the whole window: NEG outside the last row's written range
+  if (ran) {
+    for (int l = wl; l < W; l += 32) {
+      if (l < lo_w || l >= hi_w) {
+        m.cc[l] = NEG;
+        m.dd[l] = NEG;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <bool TRIM>
+__global__ void __launch_bounds__(32)
+ydrop_chunk_kernel(const int* __restrict__ a_small,
+                   const int* __restrict__ b_small,
+                   const int* __restrict__ b_off_a,
+                   const int* __restrict__ shift_a,
+                   const int* __restrict__ M_a, const int* __restrict__ N_a,
+                   int* __restrict__ CCg, int* __restrict__ DDg,
+                   int* __restrict__ sc, const int* __restrict__ subsmall,
+                   unsigned char* __restrict__ tb, long long tb_lane_stride,
+                   int W, int rows, int gap_e, int gap_oe, int y_drop,
+                   int tb_cap, int tail) {
+  extern __shared__ int smem[];
+  __shared__ int s_sub[256];
+
+  const int wl = threadIdx.x;
+  const int lane_id = blockIdx.x;
+  for (int i = wl; i < 256; i += 32) s_sub[i] = subsmall[i];
+  const Smem m = carve(smem, s_sub, W);
+
+  int* scl = sc + (long long)lane_id * NS;
+  Lane s = load_lane(scl);
+  const int b_off = b_off_a[lane_id];
+  const int sh = min(max(shift_a[lane_id], 0), W);
+
+  int* ccl = CCg + (long long)lane_id * W;
+  int* ddl = DDg + (long long)lane_id * W;
+  const int* bl = b_small + (long long)lane_id * W;
+
+  // window re-anchor: lane l takes old lane l + shift, NEG past the end
   for (int l = wl; l < W; l += 32) {
-    const bool outside = ran && (l < lo_w || l >= hi_w);
-    ccl[l] = outside ? NEG : s_cc[l];
-    ddl[l] = outside ? NEG : s_dd[l];
+    const int src = l + sh;
+    m.cc[l] = src < W ? ccl[src] : NEG;
+    m.dd[l] = src < W ? ddl[src] : NEG;
+    m.bc[l] = bl[l] & 15;
+  }
+  for (int i = wl; i < rows; i += 32)
+    m.ar[i] = (unsigned char)(a_small[(long long)lane_id * rows + i] & 15);
+  __syncwarp();  // the score table, window and row codes precede any row
+
+  run_chunk<TRIM>(s, m, b_off, M_a[lane_id], N_a[lane_id], W, rows,
+                  tb ? tb + (long long)lane_id * tb_lane_stride : nullptr,
+                  gap_e, gap_oe, y_drop, tb_cap, tail);
+
+  for (int l = wl; l < W; l += 32) {
+    ccl[l] = m.cc[l];
+    ddl[l] = m.dd[l];
+  }
+  if (wl == 0) store_lane(scl, s);
+}
+
+// The mega launch (replaces ydrop_mega_pallas's device while_loop): a
+// lane's warp runs its chunks one after another until the lane is done
+// or max_blocks chunks have run, as lastz_tpu's ydrop_mega does for
+// each lane of its vmap.  Between chunks CC/DD stay in shared memory
+// and are re-anchored there; the warp gathers each chunk's row and
+// window codes from the resident compact codes itself, with the index
+// arithmetic of ops/ydrop_exact.gather_windows.  Chunk k of a lane
+// writes its link bytes into block k of tb_all and its row_lo, row_hi
+// and col0; blocks at or past the lane's nblk are left as they came
+// (zero).
+struct MegaLane {
+  int a1, a2, low1, high1, low2, high2, rev;
+};
+
+template <bool TRIM>
+__global__ void __launch_bounds__(32)
+ydrop_mega_kernel(const signed char* __restrict__ v1c, int L1,
+                  const signed char* __restrict__ v2c, int L2,
+                  const int* __restrict__ a1_a, const int* __restrict__ a2_a,
+                  const int* __restrict__ low1_a,
+                  const int* __restrict__ high1_a,
+                  const int* __restrict__ low2_a,
+                  const int* __restrict__ high2_a,
+                  const unsigned char* __restrict__ rev_a,
+                  const int* __restrict__ M_a, const int* __restrict__ N_a,
+                  int* __restrict__ CCg, int* __restrict__ DDg,
+                  int* __restrict__ sc, int* __restrict__ prev_off_a,
+                  const int* __restrict__ subsmall,
+                  unsigned char* __restrict__ tb_all, int max_blocks,
+                  int* __restrict__ row_lo, int* __restrict__ row_hi,
+                  int* __restrict__ col0, int* __restrict__ nblk_a, int W,
+                  int rows, int gap_e, int gap_oe, int y_drop, int tb_cap,
+                  int tail) {
+  extern __shared__ int smem[];
+  __shared__ int s_sub[256];
+
+  const int wl = threadIdx.x;
+  const int lane_id = blockIdx.x;
+  for (int i = wl; i < 256; i += 32) s_sub[i] = subsmall[i];
+  const Smem m = carve(smem, s_sub, W);
+
+  int* scl = sc + (long long)lane_id * NS;
+  Lane s = load_lane(scl);
+  MegaLane g;
+  g.a1 = a1_a[lane_id];
+  g.a2 = a2_a[lane_id];
+  g.low1 = low1_a[lane_id];
+  g.high1 = high1_a[lane_id];
+  g.low2 = low2_a[lane_id];
+  g.high2 = high2_a[lane_id];
+  g.rev = rev_a[lane_id] != 0;
+  const int M = M_a[lane_id];
+  const int N = N_a[lane_id];
+  int prev_off = prev_off_a[lane_id];
+
+  int* ccl = CCg + (long long)lane_id * W;
+  int* ddl = DDg + (long long)lane_id * W;
+  for (int l = wl; l < W; l += 32) {
+    m.cc[l] = ccl[l];
+    m.dd[l] = ddl[l];
+  }
+  const long long blk = (long long)(rows + 1) * W;
+  unsigned char* tbl =
+      tb_all ? tb_all + (long long)lane_id * max_blocks * blk : nullptr;
+  int* lo_out = row_lo + (long long)lane_id * max_blocks;
+  int* hi_out = row_hi + (long long)lane_id * max_blocks;
+  int* c0_out = col0 + (long long)lane_id * max_blocks;
+
+  int k = 0;
+  for (; k < max_blocks && !s.done; ++k) {
+    const int row_base = wsub(s.row, 1);
+    const int b_off = s.LY;  // the lane is not done
+    const int sh = min(max(wsub(b_off, prev_off), 0), W);
+    __syncwarp();  // the last chunk's shared writes precede these reads
+    // re-anchor in place, 32 columns at a time: each step reads its
+    // sources before any thread writes, and later steps read only
+    // columns right of every column written so far
+    if (sh) {
+      for (int l0 = 0; l0 < W; l0 += 32) {
+        const int l = l0 + wl;
+        const int src = l + sh;
+        const int cc = src < W ? m.cc[src] : NEG;
+        const int dd = src < W ? m.dd[src] : NEG;
+        __syncwarp();
+        if (l < W) {
+          m.cc[l] = cc;
+          m.dd[l] = dd;
+        }
+        __syncwarp();
+      }
+    }
+    // the window: column c = b_off + l reads v2[a2 + c], or going left
+    // v2[a2 + 1 - c]; row r reads v1[a1 + 1 + row_base + r], or
+    // v1[a1 - row_base - r]; out of range reads code 0
+    for (int l = wl; l < W; l += 32) {
+      const int c = wadd(b_off, l);
+      const int i = g.rev ? wsub(wadd(g.a2, 1), c) : wadd(g.a2, c);
+      const bool ok = g.rev ? (i >= g.low2 && c >= 1)
+                            : (i < g.high2 && i >= g.low2);
+      m.bc[l] = ok ? v2c[min(max(i, 0), L2 - 1)] & 15 : 0;
+    }
+    for (int r = wl; r < rows; r += 32) {
+      const int i = g.rev ? wsub(wsub(g.a1, row_base), r)
+                          : wadd(wadd(wadd(g.a1, 1), row_base), r);
+      const bool ok = g.rev ? i >= g.low1 : (i < g.high1 && i >= g.low1);
+      m.ar[r] = (unsigned char)(ok ? v1c[min(max(i, 0), L1 - 1)] & 15 : 0);
+    }
+    __syncwarp();  // the window and row codes precede the chunk's rows
+
+    run_chunk<TRIM>(s, m, b_off, M, N, W, rows, tbl ? tbl + k * blk : nullptr,
+                    gap_e, gap_oe, y_drop, tb_cap, tail);
+    if (wl == 0) {
+      lo_out[k] = wadd(row_base, 1);
+      hi_out[k] = s.rows_used;
+      c0_out[k] = b_off;
+    }
+    prev_off = b_off;
+  }
+
+  for (int l = wl; l < W; l += 32) {
+    ccl[l] = m.cc[l];
+    ddl[l] = m.dd[l];
   }
   if (wl == 0) {
-    scl[S_LY] = LY;
-    scl[S_RY] = RY;
-    scl[S_ROW] = row;
-    scl[S_BEST] = best;
-    scl[S_END1] = end1;
-    scl[S_END2] = end2;
-    scl[S_BSCORE] = bscore;
-    scl[S_BFLAG] = bflag;
-    scl[S_TBP] = tbp;
-    scl[S_ROWS_USED] = rows_used;
-    scl[S_MAXRY] = maxRY;
-    scl[S_STATUS] = status;
-    scl[S_DONE] = done;
+    store_lane(scl, s);
+    prev_off_a[lane_id] = prev_off;
+    nblk_a[lane_id] = k;
   }
+}
+
+// Lets a kernel take `shm` bytes of dynamic shared memory.
+template <typename Kernel>
+int allow_smem(Kernel kernel, long long shm) {
+  if (shm > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  if (shm > SMEM_DEFAULT)
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+  return 0;
 }
 
 template <bool TRIM>
@@ -576,17 +787,32 @@ int launch(const int* a_small, const int* b_small, const int* b_off,
            int gap_oe, int y_drop, int tb_cap, int tail,
            cudaStream_t stream) {
   const long long shm = lane_smem_bytes(W, rows);
-  if (shm > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  if (shm > SMEM_DEFAULT) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ydrop_chunk_kernel<TRIM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = allow_smem(ydrop_chunk_kernel<TRIM>, shm);
+  if (e) return e;
   // one CTA of one warp per lane
   ydrop_chunk_kernel<TRIM><<<B, 32, (size_t)shm, stream>>>(
       a_small, b_small, b_off, shift, M, N, CC, DD, sc, subsmall, tb,
       tb_lane_stride, W, rows, gap_e, gap_oe, y_drop, tb_cap, tail);
+  return (int)cudaGetLastError();
+}
+
+template <bool TRIM>
+int launch_mega(const signed char* v1c, int L1, const signed char* v2c,
+                int L2, const int* a1, const int* a2, const int* low1,
+                const int* high1, const int* low2, const int* high2,
+                const unsigned char* rev, const int* M, const int* N, int* CC,
+                int* DD, int* sc, int* prev_off, const int* subsmall,
+                unsigned char* tb_all, int max_blocks, int* row_lo,
+                int* row_hi, int* col0, int* nblk, int B, int W, int rows,
+                int gap_e, int gap_oe, int y_drop, int tb_cap, int tail,
+                cudaStream_t stream) {
+  const long long shm = lane_smem_bytes(W, rows);
+  const int e = allow_smem(ydrop_mega_kernel<TRIM>, shm);
+  if (e) return e;
+  ydrop_mega_kernel<TRIM><<<B, 32, (size_t)shm, stream>>>(
+      v1c, L1, v2c, L2, a1, a2, low1, high1, low2, high2, rev, M, N, CC, DD,
+      sc, prev_off, subsmall, tb_all, max_blocks, row_lo, row_hi, col0, nblk,
+      W, rows, gap_e, gap_oe, y_drop, tb_cap, tail);
   return (int)cudaGetLastError();
 }
 
@@ -614,4 +840,37 @@ extern "C" int ydrop_chunk_launch(
              : launch<false>(a_small, b_small, b_off, shift, M, N, CC, DD,
                              sc, subsmall, tb, tb_lane_stride, B, W, rows,
                              gap_e, gap_oe, y_drop, tb_cap, tail, st);
+}
+
+// Launch up to max_blocks chunks for each of B lanes on `stream`, the
+// windows gathered from the int8 compact codes v1c (L1) and v2c (L2).
+// CC/DD (B, W), sc (B, 13) and prev_off (B,) are updated in place;
+// nblk (B,) gets each lane's chunk count and row_lo, row_hi, col0
+// (B, max_blocks) its chunks' rows and window origins.  tb_all
+// (B, max_blocks, rows + 1, W) must arrive zeroed, and may be null.
+// Returns the cudaGetLastError() code of the launch.
+extern "C" int ydrop_mega_launch(
+    const signed char* v1c, int L1, const signed char* v2c, int L2,
+    const int* a1, const int* a2, const int* low1, const int* high1,
+    const int* low2, const int* high2, const unsigned char* rev,
+    const int* M, const int* N, int* CC, int* DD, int* sc, int* prev_off,
+    const int* subsmall, unsigned char* tb_all, int max_blocks, int* row_lo,
+    int* row_hi, int* col0, int* nblk, int B, int W, int rows, int gap_e,
+    int gap_oe, int y_drop, int trim_to_peak, int tb_cap, int tail,
+    void* stream) {
+  if (B <= 0 || W <= 0 || W > 2048 || rows <= 0 || max_blocks <= 0 ||
+      L1 <= 0 || L2 <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return trim_to_peak
+             ? launch_mega<true>(v1c, L1, v2c, L2, a1, a2, low1, high1, low2,
+                                 high2, rev, M, N, CC, DD, sc, prev_off,
+                                 subsmall, tb_all, max_blocks, row_lo, row_hi,
+                                 col0, nblk, B, W, rows, gap_e, gap_oe,
+                                 y_drop, tb_cap, tail, st)
+             : launch_mega<false>(v1c, L1, v2c, L2, a1, a2, low1, high1, low2,
+                                  high2, rev, M, N, CC, DD, sc, prev_off,
+                                  subsmall, tb_all, max_blocks, row_lo,
+                                  row_hi, col0, nblk, B, W, rows, gap_e,
+                                  gap_oe, y_drop, tb_cap, tail, st);
 }

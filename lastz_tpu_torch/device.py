@@ -70,13 +70,16 @@ def _cached(key, make):
     return hit
 
 
-def upload_codes(seq, code_map, device, pad: int = 0) -> torch.Tensor:
-    """Compact-alphabet codes of `seq` as int8 on `device`, with `pad`
-    zeros on both sides."""
-    key = ("codes", content_key(seq, code_map), pad, str(device))
+def upload_codes(seq, code_map, device, pad: int = 0,
+                 dtype=np.int8) -> torch.Tensor:
+    """Compact-alphabet codes of `seq` as `dtype` (int8, or uint8 for
+    alphabets past 127 codes) on `device`, with `pad` zeros on both
+    sides."""
+    key = ("codes", content_key(seq, code_map), pad, str(device),
+           np.dtype(dtype).str)
 
     def make():
-        host = np.zeros(len(seq) + 2 * pad, np.int8)
+        host = np.zeros(len(seq) + 2 * pad, dtype)
         host[pad:pad + len(seq)] = code_map[seq]
         return torch.from_numpy(host).to(device)
     return _cached(key, make)

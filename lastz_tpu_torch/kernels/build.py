@@ -43,9 +43,13 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "ydrop_chunk_launch": [_P] * 11 + [_LL] + [_I] * 9 + [_P],
+    "ydrop_mega_launch": [_P, _I, _P, _I] + [_P] * 15 + [_I] + [_P] * 4
+                         + [_I] * 9 + [_P],
     "ydrop_traceback_launch": [_P] * 11 + [_I] * 5 + [_P],
     "xdrop_scan_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _LL,
                           _P, _P, _P, _P],
+    "xdrop_scan_wide_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _LL,
+                               _P, _P, _P, _P],
     "ydrop_wavefront_launch": [_P] * 5 + [_I] * 3 + [_P],
     "ydrop_band_launch": [_P] * 5 + [_I] * 3 + [_P],
     "resolve_chains_launch": [_P, _P, _I] + [_P] * 6 + [_I] * 3

@@ -17,9 +17,12 @@ Semantics mirror the host engine's vectorized scan
     offset is the FIRST cell attaining it; best <= 0 reports a zero
     extension.
 
-Two interchangeable host backends: the native C++ scan
-(native/ydrop_row.cpp) and numpy.  Scans longer than a
-chunk carry (cumulative score, running max, best) across chunks.
+Two interchangeable host backends, the native C++ scan
+(native/ydrop_row.cpp) and numpy, whose scans longer than a chunk carry
+(cumulative score, running max, best) across chunks; and the device
+one, batch_xdrop_device, the counterpart of lastz_tpu's batch_xdrop_jax
+(lastz_tpu/ops/xdrop_batch.py:309): K2 (ops/xdrop_cuda.xdrop_scan) on
+the card, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -170,3 +173,55 @@ def batch_xdrop_np(seq1, seq2, sub, pos1, pos2, x_drop,
         left_consumed=lc, left_score=left_score, left_start=left_start,
         right_consumed=rc, right_score=right_score,
         right_stop=right_stop)
+
+
+def device_codes(seq1, seq2, sub, device):
+    """The compact alphabet of the two sequences, up to 256 codes, on
+    `device`: (seq1p, seq2p, subflat, K), the codes SEQ_PAD-padded as
+    device.carry_state pads them (int8 for K <= 16, uint8 past it) and
+    the K x K int32 table flat (16 x 16 for K <= 16, K2's narrow
+    table).  The uploads are cached by content (device.upload_codes)."""
+    import torch
+
+    from ..device import SEQ_PAD, upload_codes
+    from .ydrop_exact import make_compact_alphabet
+    code_map, subsmall = make_compact_alphabet([seq1, seq2], sub, max_k=256)
+    K = max(int(code_map.max()) + 1, 16)
+    dtype = np.int8 if K == 16 else np.uint8
+    subflat = torch.from_numpy(
+        np.ascontiguousarray(subsmall[:K, :K]).reshape(-1)).to(device)
+    return (upload_codes(seq1, code_map, device, SEQ_PAD, dtype),
+            upload_codes(seq2, code_map, device, SEQ_PAD, dtype), subflat, K)
+
+
+def batch_xdrop_device(seq1, seq2, sub, pos1, pos2, x_drop, device,
+                       codes=None):
+    """batch_xdrop_np's two-sided unblocked x-drop of every hit, both
+    sides in one call of K2 on `device` (its plain version for the
+    CPU), with the int32 sums of lastz_tpu's batch_xdrop_jax.  pos1/pos2
+    are the hits' end positions; `codes` is device_codes' result for
+    these sequences (made here when None).  The results are int64 numpy
+    arrays in hit order: left_consumed, left_score, left_start,
+    right_consumed, right_score, right_stop."""
+    import torch
+
+    from .xdrop_cuda import xdrop_scan
+    pos1 = np.asarray(pos1, dtype=np.int64)
+    pos2 = np.asarray(pos2, dtype=np.int64)
+    diag = pos1 - pos2
+    n_l = pos1 - np.maximum(diag, 0)
+    n_r = np.maximum(np.minimum(len(seq1), len(seq2) + diag) - pos1, 0)
+    s1p, s2p, subflat, K = codes or device_codes(seq1, seq2, sub, device)
+
+    def up(a):
+        return torch.from_numpy(a.astype(np.int32)).to(device)
+
+    left, right = xdrop_scan(s1p, s2p, subflat, K, up(pos1), up(pos2),
+                             up(n_l), up(n_r), int(x_drop))
+    lc, lb, lk, rc, rb, rk = torch.stack(
+        [*left, *right]).cpu().numpy().astype(np.int64)
+    return dict(
+        left_consumed=lc, left_score=np.where(lb > 0, lb, 0),
+        left_start=np.where(lb > 0, pos1 - 1 - lk, pos1),
+        right_consumed=rc, right_score=np.where(rb > 0, rb, 0),
+        right_stop=np.where(rb > 0, pos1 + rk + 1, pos1))

@@ -2,6 +2,8 @@
 
   ydrop_chunk     K1, csrc/ydrop_chunk.cu; replaces
                   lastz_tpu/ops/ydrop_pallas_exact.py::_kernel (:79)
+  ydrop_mega      K1's mega launch, the same source; replaces the
+                  device while_loop of ydrop_mega_pallas (:434)
   traceback_mega  csrc/ydrop_traceback.cu; replaces the device
                   while_loop lastz_tpu/ops/ydrop_exact.py::
                   traceback_mega_dev (:675)
@@ -19,8 +21,8 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
-from .ydrop_exact import (SCALAR_KEYS, traceback_mega_plain,
-                          y_drop_tail, ydrop_chunk_plain)
+from .ydrop_exact import (SCALAR_KEYS, pack_scalars, traceback_mega_plain,
+                          y_drop_tail, ydrop_chunk_plain, ydrop_mega_plain)
 
 _I32 = torch.int32
 
@@ -91,6 +93,70 @@ def ydrop_chunk(a_small, b_small, b_off, shift, M, N, state, subsmall,
 
 
 ydrop_chunk.launches = 0
+
+
+def ydrop_mega(v1c, v2c, a1, a2, low1, high1, low2, high2, rev, M, N,
+               state, prev_off0, subsmall, *, gap_e: int, gap_oe: int,
+               y_drop: int, lanes: int, rows: int, max_blocks: int,
+               alpha: int, trim_to_peak: bool, tb_cap: int,
+               with_tb: bool = True):
+    """Up to `max_blocks` chunks of every lane in one launch (contract
+    of ops/ydrop_exact.ydrop_mega_plain): (state', prev_off', packed
+    (13, B), tb_all, row_lo, row_hi, col0).  v1c/v2c are the int8
+    compact codes of the two sequences, resident on the card; the
+    state is copied once, and the kernel updates the copy in place."""
+    kw = dict(gap_e=gap_e, gap_oe=gap_oe, y_drop=y_drop, lanes=lanes,
+              rows=rows, max_blocks=max_blocks, alpha=alpha,
+              trim_to_peak=trim_to_peak, tb_cap=tb_cap, with_tb=with_tb)
+    if v1c.device.type == "cpu":
+        return ydrop_mega_plain(v1c, v2c, a1, a2, low1, high1, low2, high2,
+                                rev, M, N, state, prev_off0, subsmall, **kw)
+    if v1c.device.type != "cuda":
+        raise ValueError(f"ydrop_mega: unsupported device {v1c.device}")
+    B = a1.shape[0]
+    W = lanes
+    dev = v1c.device
+    if v1c.dtype != torch.int8 or v2c.dtype != torch.int8:
+        raise ValueError("ydrop_mega: sequences must be int8 codes")
+    if tuple(subsmall.shape) != (16, 16):
+        raise ValueError("ydrop_mega: subsmall must be 16x16")
+    if (B == 0 or not 0 < W <= 2048 or rows <= 0 or max_blocks <= 0
+            or not 0 <= tb_cap < (1 << 31) or v1c.numel() == 0
+            or v2c.numel() == 0 or tuple(state["CC"].shape) != (B, W)):
+        raise ValueError("ydrop_mega: shapes or tb_cap out of range")
+    CC = state["CC"].to(_I32).clone(memory_format=torch.contiguous_format)
+    DD = state["DD"].to(_I32).clone(memory_format=torch.contiguous_format)
+    sc = torch.stack([state[k].to(_I32) for k in SCALAR_KEYS],
+                     dim=1).contiguous()
+    prev = prev_off0.to(_I32).clone(memory_format=torch.contiguous_format)
+    tb_all = torch.zeros((B, max_blocks, rows + 1, W) if with_tb
+                         else (B, 1, 1, 1), dtype=torch.uint8, device=dev)
+    row_lo, row_hi, col0 = (torch.zeros((B, max_blocks), dtype=_I32,
+                                        device=dev) for _ in range(3))
+    nblk = torch.empty(B, dtype=_I32, device=dev)
+    lane = [_i32(x) for x in (a1, a2, low1, high1, low2, high2)]
+    rv = rev.to(torch.uint8).contiguous()
+    m, n = _i32(M), _i32(N)
+    sub = _i32(subsmall)
+    s1, s2 = v1c.contiguous(), v2c.contiguous()
+    rc = build.load().ydrop_mega_launch(
+        s1.data_ptr(), s1.numel(), s2.data_ptr(), s2.numel(),
+        *[t.data_ptr() for t in lane], rv.data_ptr(), m.data_ptr(),
+        n.data_ptr(), CC.data_ptr(), DD.data_ptr(), sc.data_ptr(),
+        prev.data_ptr(), sub.data_ptr(),
+        tb_all.data_ptr() if with_tb else None, max_blocks,
+        row_lo.data_ptr(), row_hi.data_ptr(), col0.data_ptr(),
+        nblk.data_ptr(), B, W, rows, gap_e, gap_oe, y_drop,
+        int(trim_to_peak), tb_cap, y_drop_tail(y_drop, gap_e), _stream())
+    build.check(rc, "ydrop_mega")
+    ydrop_mega.launches += 1
+    st = {"CC": CC, "DD": DD}
+    for i, k in enumerate(SCALAR_KEYS):
+        st[k] = sc[:, i] != 0 if k in ("bflag", "done") else sc[:, i]
+    return st, prev, pack_scalars(st, nblk), tb_all, row_lo, row_hi, col0
+
+
+ydrop_mega.launches = 0
 
 
 def traceback_mega(tb_all, row_lo, row_hi, col0, nblk, end1, end2, want,

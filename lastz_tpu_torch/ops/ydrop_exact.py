@@ -14,9 +14,13 @@ insertion values the link bytes need.
                        (_chunk_one/ydrop_chunk, :212/:455); the CPU
                        path of ops/ydrop_cuda.ydrop_chunk and the
                        oracle of csrc/ydrop_chunk.cu
-  ydrop_mega           a host loop over <= max_blocks chunks with the
-                       window gather written as index arithmetic
-                       (_mega_one/ydrop_mega, :568/:644)
+  ydrop_mega_plain     <= max_blocks chunks of every lane in lockstep,
+                       the window gather written as index arithmetic
+                       (_mega_one/ydrop_mega, :568/:644); the CPU path
+                       of ops/ydrop_cuda.ydrop_mega and the oracle of
+                       its kernel, ydrop_mega_launch in
+                       csrc/ydrop_chunk.cu
+  ydrop_mega_lanes_plain  the same, one lane at a time
   traceback_mega_plain the link-byte walk over the retained blocks
                        (traceback_mega_dev, :675-736); the oracle of
                        csrc/ydrop_traceback.cu
@@ -72,7 +76,11 @@ def make_compact_alphabet(arrays, sub, max_k=16):
     present = np.zeros(256, bool)
     present[0] = True
     for a in arrays:
-        present[np.unique(a)] = True
+        a = np.asarray(a)
+        if a.dtype == np.uint8:  # a count is a tenth of a sort's time
+            present |= np.bincount(a.ravel(), minlength=256) > 0
+        else:
+            present[np.unique(a)] = True
     codes = np.nonzero(present)[0]
     if len(codes) > max_k:
         return None
@@ -393,19 +401,19 @@ def gather_windows(v1c, v2c, a1, a2, low1, high1, low2, high2, rev,
     return a_win, b_win
 
 
-def ydrop_mega(v1c, v2c, a1, a2, low1, high1, low2, high2, rev, M, N,
-               state, prev_off0, subsmall, *, gap_e: int, gap_oe: int,
-               y_drop: int, lanes: int, rows: int, max_blocks: int,
-               alpha: int, trim_to_peak: bool, tb_cap: int,
-               with_tb: bool = True):
+def ydrop_mega_plain(v1c, v2c, a1, a2, low1, high1, low2, high2, rev, M,
+                     N, state, prev_off0, subsmall, *, gap_e: int,
+                     gap_oe: int, y_drop: int, lanes: int, rows: int,
+                     max_blocks: int, alpha: int, trim_to_peak: bool,
+                     tb_cap: int, with_tb: bool = True):
     """Up to `max_blocks` resumable chunks per lane, same contract as
     the JAX ydrop_mega: returns (state', prev_off', packed (13, B),
     tb_all (B, max_blocks, rows+1, lanes), row_lo, row_hi, col0
-    (B, max_blocks)).  Each chunk goes through ops/ydrop_cuda.ydrop_chunk
-    (the kernel on the card, the plain version on the CPU), and costs
-    one any(~done) read on the host."""
-    from .ydrop_cuda import ydrop_chunk
-
+    (B, max_blocks)); without `with_tb`, tb_all is (B, 1, 1, 1) zeros.
+    The plain version of the mega launch of csrc/ydrop_chunk.cu: all
+    lanes in lockstep, a chunk at a time through ydrop_chunk_plain,
+    lanes already done riding along unchanged, and one any(~done) read
+    on the host per chunk (counted in ydrop_mega_plain.host_reads)."""
     dev = v1c.device
     B = a1.shape[0]
     W = lanes
@@ -422,6 +430,7 @@ def ydrop_mega(v1c, v2c, a1, a2, low1, high1, low2, high2, rev, M, N,
     col0 = torch.zeros_like(row_lo)
     for k in range(max_blocks):
         active = ~st["done"]
+        ydrop_mega_plain.host_reads += 1
         if not bool(active.any()):
             break
         row_base = st["row"] - 1
@@ -430,19 +439,50 @@ def ydrop_mega(v1c, v2c, a1, a2, low1, high1, low2, high2, rev, M, N,
         a_win, b_win = gather_windows(v1c, v2c, a1, a2, low1, high1,
                                       low2, high2, rev, row_base, b_off,
                                       rows, W)
-        st, _ = ydrop_chunk(a_win, b_win, b_off, shift, M, N, st,
-                            subsmall, tb_out=tb_all[:, k] if with_tb
-                            else None, want_tb=with_tb, **kw)
+        st, tb = ydrop_chunk_plain(a_win, b_win, b_off, shift, M, N, st,
+                                   subsmall, **kw)
+        if with_tb:
+            tb_all[:, k] = tb
         row_lo[:, k] = torch.where(active, row_base + 1, 0)
         row_hi[:, k] = torch.where(active, st["rows_used"], 0)
         col0[:, k] = torch.where(active, b_off, 0)
         nblk += active.to(_I32)
         prev_off = b_off
-    packed = torch.stack([
+    return st, prev_off, pack_scalars(st, nblk), tb_all, row_lo, row_hi, \
+        col0
+
+
+ydrop_mega_plain.host_reads = 0
+
+
+def pack_scalars(st, nblk):
+    """The (13, B) int32 block the host fetches after a mega launch:
+    row, LY, rows_used, done, status, best, end1, end2, bscore, bflag,
+    tbp, maxRY, nblk (ydrop_exact.py:662-667)."""
+    return torch.stack([
         st["row"], st["LY"], st["rows_used"], st["done"].to(_I32),
         st["status"], st["best"], st["end1"], st["end2"], st["bscore"],
         st["bflag"].to(_I32), st["tbp"], st["maxRY"], nblk])
-    return st, prev_off, packed, tb_all, row_lo, row_hi, col0
+
+
+def ydrop_mega_lanes_plain(v1c, v2c, a1, a2, low1, high1, low2, high2,
+                           rev, M, N, state, prev_off0, subsmall, **kw):
+    """ydrop_mega_plain one lane at a time, each lane to its own end (as
+    the kernel's warps and the JAX vmap run them), the lanes' results
+    concatenated: equal to the lockstep version because no lane reads
+    another's state."""
+    outs = []
+    for b in range(a1.shape[0]):
+        sl = slice(b, b + 1)
+        outs.append(ydrop_mega_plain(
+            v1c, v2c, *(x[sl] for x in (a1, a2, low1, high1, low2, high2,
+                                        rev, M, N)),
+            {k: v[sl] for k, v in state.items()}, prev_off0[sl], subsmall,
+            **kw))
+    st = {k: torch.cat([o[0][k] for o in outs]) for k in outs[0][0]}
+    packed = torch.cat([o[2] for o in outs], dim=1)
+    return (st, torch.cat([o[1] for o in outs]), packed,
+            *(torch.cat([o[i] for o in outs]) for i in range(3, 7)))
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ stages:
     enumeration order — query position ascending, probe order, target
     positions descending (the last/prev chain order).
  2. EXTEND (batched, ops/xdrop_batch.py): unblocked two-sided x-drop
-    extension of every candidate (native C++ or vectorized numpy).
+    extension of every candidate: on the engine's device (K2) where
+    lastz_tpu's device scan runs, else native C++ or vectorized numpy.
  3. RESOLVE (vectorized): the 64K diagonal-hash protocol
     (process_for_simple_hit, seed_search.c:1056-1198).  The key
     observation making this parallel: the per-diagonal extent state
@@ -400,7 +401,16 @@ def batched_search(engine, start: int = 0, end: int = 0,
     x_drop = hp.x_drop
     sub = engine._sub
     no_extend = hp.gf_extend == GFEX_NO_EXTEND
-    if not no_extend:
+    # the device x-drop (K2), where lastz_tpu's batch_xdrop_jax runs with
+    # its device on (lastz_tpu/search/batched.py:414-425)
+    on_device = (engine.device is not None and not no_extend
+                 and sub is not None and sub.dtype == np.int64
+                 and np.abs(sub).max() < (1 << 31)
+                 and max(len(engine.seq1), len(engine.seq2)) < (1 << 31))
+    if on_device:
+        from ..ops.xdrop_batch import batch_xdrop_device, device_codes
+        codes = device_codes(engine.seq1, engine.seq2, sub, engine.device)
+    elif not no_extend:
         from ..ops.xdrop_batch import batch_xdrop_native, batch_xdrop_np
         native_lib = None
         if (sub is not None and sub.dtype == np.int64
@@ -456,7 +466,10 @@ def batched_search(engine, start: int = 0, end: int = 0,
             ext = None
             extent = pos2a
         else:
-            if native_lib is not None:
+            if on_device:
+                ext = batch_xdrop_device(seq1, seq2, sub, pos1a, pos2a,
+                                         x_drop, engine.device, codes)
+            elif native_lib is not None:
                 ext = batch_xdrop_native(seq1, seq2, sub, pos1a,
                                          pos2a, x_drop, native_lib)
             else:

@@ -5,8 +5,9 @@ card.  This file imports no JAX, so it also runs where JAX is absent:
 
 Each test skips where torch finds no card (a CUDA kernel has no CPU
 mode).  The tolerance is exact equality: integer DP state, link bytes,
-x-drop results, the (best, row, column) of K3 and K3b, the chain
-walk's outputs and the device-built position table."""
+x-drop results (K2 and its wide instantiation), the (best, row, column)
+of K3 and K3b, the chain walk's outputs and the device-built position
+table."""
 
 import numpy as np
 import pytest
@@ -17,7 +18,7 @@ from lastz_tpu_torch.device import carry_state
 from lastz_tpu_torch.ops import ydrop_exact as tx
 from lastz_tpu_torch.ops import ydrop_pallas as tp
 from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
-from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega, ydrop_chunk
+from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega, ydrop_mega
 
 from chip_smoke import (CHAIN_EDGES, WALK_EDGE_CAPS, WALK_EDGE_GEOMETRY,
                         XDROP_EDGES, chain_edge_inputs, chain_walk_args,
@@ -26,10 +27,11 @@ from test_hitgen import _related_pair
 
 
 def _mega_inputs(seed=21, n=1500, Bh=6, W=256, y_drop=3000, rows=64,
-                 max_blocks=4):
+                 max_blocks=4, anchors=None):
     """One small mega launch: Bh anchors near the diagonal of a related
-    pair, both directions, 64-row chunks, 4 retained blocks (so some
-    lanes finish inside the blocks and some do not)."""
+    pair (at target positions `anchors` when given), both directions,
+    64-row chunks, 4 retained blocks (so some lanes finish inside the
+    blocks and some do not)."""
     rng = np.random.default_rng(seed)
     sc = new_dna_score_set()
     alpha = np.frombuffer(b"ACGT", np.uint8)
@@ -39,6 +41,9 @@ def _mega_inputs(seed=21, n=1500, Bh=6, W=256, y_drop=3000, rows=64,
     s2[mut] = alpha[rng.integers(0, 4, mut.sum())]
     code_map, subsmall = tx.make_compact_alphabet([s1, s2], sc.sub)
     a1 = rng.integers(50, n - 50, Bh)
+    if anchors is not None:
+        a1 = np.asarray(anchors)
+        Bh = len(a1)
     a2 = np.clip(a1 + rng.integers(-3, 4, Bh), 0, n - 1)
     A1 = np.concatenate([a1, a1]).astype(np.int32)
     A2 = np.concatenate([a2, a2]).astype(np.int32)
@@ -70,21 +75,21 @@ def _mega(dev, seqs, lane, state, prev, subsmall, kw, with_tb=True):
         if torch.is_tensor(a):
             return a.to(dev)
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return tx.ydrop_mega(*map(up, seqs + lane),
-                         {k: up(v) for k, v in state.items()}, up(prev),
-                         up(subsmall), with_tb=with_tb, **kw)
+    return ydrop_mega(*map(up, seqs + lane),
+                      {k: up(v) for k, v in state.items()}, up(prev),
+                      up(subsmall), with_tb=with_tb, **kw)
 
 
 @pytest.mark.cuda
 def test_cuda_ydrop_matches_plain():
-    """K1 through the mega loop, with and without link bytes, and the
-    traceback kernel, each against its plain version."""
+    """K1's mega launch, with and without link bytes, and the traceback
+    kernel, each against its plain version."""
     dev = _card()
     seqs, lane, st_np, subsmall, kw = _mega_inputs()
     prev0 = np.zeros(lane[0].shape[0], np.int32)
-    n0 = ydrop_chunk.launches
+    n0 = ydrop_mega.launches
     got = _mega(dev, seqs, lane, st_np, prev0, subsmall, kw)
-    assert ydrop_chunk.launches > n0
+    assert ydrop_mega.launches == n0 + 1
     want = _mega(torch.device("cpu"), seqs, lane, st_np, prev0, subsmall,
                  kw)
     for k in tx.STATE_KEYS:
@@ -119,10 +124,102 @@ def test_cuda_ydrop_matches_plain():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_tb", [True, False])
+def test_cuda_mega_mixed_lanes(with_tb):
+    """The mega launch on lanes that end after one chunk, after several
+    and after none of the four, a lane done on entry and lanes resuming
+    from a nonzero prev_off, against the plain lockstep loop."""
+    dev = _card()
+    seqs, lane, st_np, subsmall, kw = _mega_inputs(
+        anchors=[30, 150, 700, 1300, 1420, 1460])
+    st_np = {k: v.copy() for k, v in st_np.items()}
+    st_np["done"][4] = True
+    B = lane[0].shape[0]
+    got = _mega(dev, seqs, lane, st_np, np.zeros(B, np.int32), subsmall, kw,
+                with_tb=with_tb)
+    want = _mega(torch.device("cpu"), seqs, lane, st_np,
+                 np.zeros(B, np.int32), subsmall, kw, with_tb=with_tb)
+    for k in tx.STATE_KEYS:
+        assert torch.equal(got[0][k].cpu(), want[0][k]), k
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a.cpu(), b)
+    nblk = want[2][12]
+    assert int(nblk[4]) == 0 and int(nblk.max()) == kw["max_blocks"]
+    # the unfinished lanes once more, from where they stopped
+    again = _mega(dev, seqs, lane, got[0], got[1], subsmall, kw,
+                  with_tb=with_tb)
+    want2 = _mega(torch.device("cpu"), seqs, lane, want[0], want[1],
+                  subsmall, kw, with_tb=with_tb)
+    for a, b in zip(again[1:], want2[1:]):
+        assert torch.equal(a.cpu(), b)
+
+
+def _wide_inputs(K, n=30000, H=40000, seed=0):
+    """K2's wide instantiation: a related pair of uint8 codes over K
+    symbols (a third of it conserved), SEQ_PAD-padded, a K x K table
+    with positive matches, and H hits half on the conserved diagonal."""
+    from lastz_tpu_torch.device import SEQ_PAD
+    rng = np.random.default_rng(seed + K)
+    s1 = rng.integers(0, K, n).astype(np.uint8)
+    s2 = np.where(rng.random(n) < 0.15, rng.integers(0, K, n), s1)
+    s2 = np.where(np.arange(n) % 3000 < 1000, s2,
+                  rng.integers(0, K, n)).astype(np.uint8)
+    sub = rng.integers(-60, 20, (K, K)).astype(np.int32)
+    sub[np.arange(K), np.arange(K)] = rng.integers(40, 100, K)
+    pos1 = rng.integers(1, n, H)
+    pos2 = np.where(rng.random(H) < 0.5, pos1, rng.integers(1, n, H))
+    diag = pos1 - pos2
+    n_l = pos1 - np.maximum(diag, 0)
+    n_r = np.maximum(np.minimum(n, n + diag) - pos1, 0)
+    pad = np.zeros(SEQ_PAD, np.uint8)
+    return [torch.from_numpy(a) for a in (
+        np.concatenate([pad, s1, pad]), np.concatenate([pad, s2, pad]),
+        sub.reshape(-1))], [torch.from_numpy(a.astype(np.int32))
+                            for a in (pos1, pos2, n_l, n_r)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [17, 40, 241, 242, 256])
+def test_cuda_xdrop_wide_matches_plain(K):
+    """K2's wide instantiation against its plain version: its table in
+    shared memory (K <= 241, K x K x 4 bytes within the opt-in 227 KB)
+    and through the read-only cache (K > 241)."""
+    dev = _card()
+    seqs, hits = _wide_inputs(K)
+    n0, w0 = xdrop_scan.launches, xdrop_scan.wide_launches
+    got = xdrop_scan(*(a.to(dev) for a in seqs), K,
+                     *(a.to(dev) for a in hits), 400)
+    assert xdrop_scan.launches == n0 + 1
+    assert xdrop_scan.wide_launches == w0 + 1
+    want = xdrop_scan(*seqs, K, *hits, 400)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a.cpu(), b)
+    assert int(want[1][0].max()) > 256  # walks past stage 1's cells
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", XDROP_EDGES)
+def test_cuda_xdrop_wide_edges(case):
+    """The wide instantiation at K2's stage and chunk edges (K = 40)."""
+    dev = _card()
+    arrays, x_drop, expect = xdrop_edge_inputs(case, 40)
+    s1, s2, sub, *rest = (torch.from_numpy(a) for a in arrays)
+    got = xdrop_scan(s1.to(dev), s2.to(dev), sub.to(dev), 40,
+                     *(a.to(dev) for a in rest), x_drop)
+    want = xdrop_scan(s1, s2, sub, 40, *rest, x_drop)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a.cpu(), b)
+    for side in want:
+        assert tuple(int(a[0]) for a in side) == expect
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_tb", [True, False])
 @pytest.mark.parametrize("y_drop,min_band", [(9400, 160), (20000, 416)])
 def test_cuda_ydrop_wide_band_edges(y_drop, min_band, with_tb):
-    """K1 through ydrop_mega, one chunk per call, in the main path's
-    window (1536): at its y-drop (9400) bands wider than K1's narrow
+    """K1's mega launch, one chunk per call, in the main path's window
+    (1536): at its y-drop (9400) bands wider than K1's narrow
     tile (5 columns per thread, 160 columns), and at 20000 bands wider
     than 416 columns, past its wide tile (9 per thread, 288), so that a
     row takes several tiles.  The batch holds a lane done on entry, a

@@ -18,6 +18,7 @@ from lastz_tpu.pipeline import Pipeline as HostPipeline
 from test_device_path import _make_pair
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+QSCORES = os.path.join(ROOT, "tests", "golden", "quantum", "qscores.txt")
 
 
 def _port_sources():
@@ -116,6 +117,23 @@ def _tweener_pair(tmp_path, seed=3):
     return paths
 
 
+def quantum_pair(tmp_path):
+    """_make_pair's small pair with the query as quantum DNA: A, C, G
+    and T as the bytes 1 to 4 of QSCORES' alphabet, written by
+    lastz_tpu's any_to_qdna.  Returns the target and the query's
+    specifier."""
+    t, q = _make_pair(tmp_path, n=1500, seed=5)
+    with open(q) as f:
+        seq = "".join(f.read().split("\n")[1:]).encode()
+    qdna = tmp_path / "q.qdna"
+    with open(qdna, "wb") as f:
+        subprocess.run([sys.executable, "-m", "lastz_tpu.tools.any_to_qdna",
+                        "--striplinebreaks"],
+                       input=bytes(b"ACGT".index(c) + 1 for c in seq),
+                       stdout=f, check=True, cwd=ROOT)
+    return t, f"{qdna}[quantum]"
+
+
 # name: (options, pair); the default LAV run is
 # test_torch_pipeline.py::test_runs_with_jax_blocked
 OPTION_SETS = {
@@ -128,6 +146,10 @@ OPTION_SETS = {
     "word20": (["--ydrop=3000", "--word=20"], None),
     # --writecapsule={cap}, then the same run through --targetcapsule
     "capsule": (["--ydrop=3000"], None),
+    # twin seed hits and a quantum query: the batched search's device
+    # x-drop (ops/xdrop_batch.batch_xdrop_device)
+    "twins": (["--ydrop=3000", "--twins=20..200"], None),
+    "quantum": ([f"Q={QSCORES}"], quantum_pair),
 }
 
 

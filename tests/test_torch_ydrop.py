@@ -1,9 +1,11 @@
 """The port's gapped stage (lastz_tpu_torch/ops/ydrop_exact.py and
 ops/ydrop_cuda.py) against lastz_tpu's: the plain PyTorch chunk equals
 the JAX chunk and the Pallas kernel (interpret mode) state for state
-and traceback byte for byte, and the mega loop plus traceback equal
-ydrop_mega plus traceback_mega_dev.  Inputs come from a numpy seed;
-the tolerance is exact equality (integer DP state and link bytes)."""
+and traceback byte for byte, the mega loop plus traceback equal
+ydrop_mega plus traceback_mega_dev, and the mega loop run one lane at
+a time (as the mega kernel's warps run it) equals both.  Inputs come
+from a numpy seed; the tolerance is exact equality (integer DP state
+and link bytes)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -14,7 +16,8 @@ from lastz_tpu.core.scoring import new_dna_score_set
 from lastz_tpu.ops import ydrop_exact as jx
 from lastz_tpu.ops.ydrop_pallas_exact import ydrop_chunk_pallas
 from lastz_tpu_torch.ops import ydrop_exact as tx
-from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega, ydrop_chunk
+from lastz_tpu_torch.ops.ydrop_cuda import (traceback_mega, ydrop_chunk,
+                                            ydrop_mega)
 
 from chip_smoke import WALK_EDGE_CAPS, walk_inputs
 from test_torch_cuda import _mega_inputs
@@ -193,7 +196,7 @@ def test_mega_and_traceback_match_jax():
     j = jx.ydrop_mega(*map(jnp.asarray, seqs + lane),
                       {k: jnp.asarray(v) for k, v in st_np.items()},
                       jnp.zeros(B2, jnp.int32), jnp.asarray(subsmall), **kw)
-    t = tx.ydrop_mega(*map(torch.from_numpy, seqs + lane),
+    t = ydrop_mega(*map(torch.from_numpy, seqs + lane),
                       {k: torch.from_numpy(v) for k, v in st_np.items()},
                       torch.zeros(B2, dtype=torch.int32),
                       torch.from_numpy(subsmall), **kw)
@@ -232,13 +235,50 @@ def test_mega_and_traceback_match_jax():
     j2 = jx.ydrop_mega(*map(jnp.asarray, seqs + c_lane),
                        {k: v[sel] for k, v in st_j.items()}, prev_j[sel],
                        jnp.asarray(subsmall), with_tb=False, **kw)
-    t2 = tx.ydrop_mega(*map(torch.from_numpy, seqs + c_lane),
+    t2 = ydrop_mega(*map(torch.from_numpy, seqs + c_lane),
                        {k: v[sel_t] for k, v in st_t.items()},
                        prev_t[sel_t], torch.from_numpy(subsmall),
                        with_tb=False, **kw)
     _assert_state_equal(j2[0], t2[0], "continuation")
     for name, i in (("prev_off", 1), ("packed", 2), ("row_lo", 4)):
         assert np.array_equal(np.asarray(j2[i]), t2[i].numpy()), name
+
+
+# target positions of six anchors on _mega_inputs' 1500 bp pair: with
+# 64-row chunks and 4 blocks, lanes that end after one chunk (39 and 31
+# rows), after several (79, 151 and 199 rows) and after none of the
+# four (the rest)
+MIXED_ANCHORS = [30, 150, 700, 1300, 1420, 1460]
+
+
+@pytest.mark.parametrize("with_tb", [True, False], ids=["links", "scores"])
+def test_mega_lanes_plain_matches_jax_and_lockstep(with_tb):
+    """ydrop_mega_lanes_plain (each lane alone, to its own end), the
+    lockstep ydrop_mega_plain and the ydrop_mega wrapper on CPU tensors
+    all equal lastz_tpu's ydrop_mega, output for output."""
+    seqs, lane, st_np, subsmall, kw = _mega_inputs(anchors=MIXED_ANCHORS)
+    B2 = lane[0].shape[0]
+    ref = jx.ydrop_mega(*map(jnp.asarray, seqs + lane),
+                        {k: jnp.asarray(v) for k, v in st_np.items()},
+                        jnp.zeros(B2, jnp.int32), jnp.asarray(subsmall),
+                        with_tb=with_tb, **kw)
+    args = (*map(torch.from_numpy, seqs + lane),
+            {k: torch.from_numpy(v) for k, v in st_np.items()},
+            torch.zeros(B2, dtype=torch.int32), torch.from_numpy(subsmall))
+    names = ("prev_off", "packed", "tb_all", "row_lo", "row_hi", "col0")
+    for fn in (tx.ydrop_mega_lanes_plain, tx.ydrop_mega_plain, ydrop_mega):
+        got = fn(*args, with_tb=with_tb, **kw)
+        _assert_state_equal(ref[0], got[0], fn.__name__)
+        for name, a, b in zip(names, ref[1:], got[1:]):
+            assert np.asarray(a).dtype == b.numpy().dtype, name
+            assert np.array_equal(np.asarray(a), b.numpy()), \
+                f"{fn.__name__}: {name}"
+    nblk = got[2][12].numpy()
+    done = got[0]["done"].numpy()
+    assert (done & (nblk == 1)).any() and (done & (nblk > 1)).any()
+    assert (~done & (nblk == kw["max_blocks"])).any()
+    if not with_tb:
+        assert tuple(got[3].shape) == (B2, 1, 1, 1)
 
 
 @pytest.mark.parametrize("cap", WALK_EDGE_CAPS)
