@@ -44,7 +44,13 @@ Phases, one line each (any failure exits nonzero):
                launches of all four, one mega launch a call and no host
                read in the chunk loop, a DevicePositionTable never fetched
                to the host nor uploaded again, a nonzero device gapped
-               share and the seed stage on the device only, then runs
+               share and the seed stage on the device only; runs the
+               main path's mega call with the most chunks once more
+               through the kernel (equal to the main path's outputs) and
+               through ydrop_mega_plain on the card (every output, link
+               bytes included), with the band census of its rows, the
+               band cells, the bound and the chain floor of all the
+               calls; then runs
                lastz_tpu's host path (a child process, the reference) on
                the same pair and requires byte-equal LAV; then runs the
                port's CLI once more from a copy of lastz_tpu_torch alone
@@ -193,6 +199,11 @@ OPS_PER_CELL = {"ydrop_chunk": 20, "ydrop_mega": 20, "xdrop_scan": 5,
 # The floor of a chain walk: its longest chain, one dependent step (a
 # compare and a select on the carried extent) of about 8 cycles a hit.
 CHAIN_STEP_CYCLES = 8
+# The floor of K1's mega launch: its longest lane's rows, each at least
+# the least row latency that kernel_bench.py --census measured on the
+# main path's 4.3 M rows (the profile build's fastest row, four warps a
+# lane; NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6).
+ROW_MIN_CYCLES = 2683
 
 
 def say(phase, **kw):
@@ -860,6 +871,91 @@ def check_mega(dev):
             {"score_only_ms": score_ms, "chunks": int(nblk.max())})
 
 
+def k1_warps() -> int:
+    """The warps of a lane's CTA in csrc/ydrop_chunk.cu (its WARPS)."""
+    with open(os.path.join(ROOT, "lastz_tpu_torch", "csrc",
+                           "ydrop_chunk.cu")) as f:
+        return int(re.search(r"constexpr int WARPS = (\d+);",
+                             f.read()).group(1))
+
+
+def row_floor_ms(rows):
+    """The floor of a lane's chain of rows: ROW_MIN_CYCLES each."""
+    return 1e3 * rows * ROW_MIN_CYCLES / CLOCK_HZ
+
+
+def check_main_mega(calls, walk_floor, card):
+    """The main path's mega calls (mega_capture): each lane's rows and
+    the band cells, and the call with the most chunks once more through
+    the kernel and through ydrop_mega_plain on the card, every output
+    (its outputs but the link bytes also against the main path's own);
+    the band census of that call from the plain version's rows.  Returns
+    the mega row's main-path entries."""
+    import torch
+    from lastz_tpu_torch.ops import ydrop_exact as tx
+    from lastz_tpu_torch.ops.ydrop_cuda import ydrop_mega
+    if not calls:
+        raise AssertionError("main path: no mega call was captured")
+    chunks = [int(out[2][12].max()) for _, _, out in calls]
+    rows = [tx.lane_rows(out[2][12].cpu().numpy(), out[3].cpu().numpy(),
+                         out[4].cpu().numpy()) for _, _, out in calls]
+    cells = sum(int((out[0]["tbp"].long() - args[11]["tbp"].long()).sum())
+                for args, _, out in calls)
+    i = int(np.argmax(chunks))
+    args, kw, seen = calls[i]
+    got = ydrop_mega(*args, **kw)
+    for k in seen[0]:
+        if not torch.equal(got[0][k], seen[0][k]):
+            raise AssertionError(f"main mega call {i}: state[{k}] differs "
+                                 f"from the main path's")
+    for a, b in zip((*got[1:3], *got[4:]), seen[1:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"main mega call {i}: differs from the main "
+                                 f"path's")
+    bands = []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want = tx.ydrop_mega_plain(*args, bands=bands, **kw)
+    torch.cuda.synchronize()
+    plain_ms = 1000 * (time.monotonic() - t0)
+    err = 0
+    for k in want[0]:
+        e = max_abs_diff(got[0][k], want[0][k])
+        if e:
+            raise AssertionError(f"main mega call {i}: state[{k}] differs "
+                                 f"from the plain version by {e}")
+    for name, a, b in zip(("prev_off", "packed", "tb_all", "row_lo",
+                           "row_hi", "col0"), got[1:], want[1:]):
+        e = max_abs_diff(a, b)
+        if e:
+            raise AssertionError(f"main mega call {i}: {name} differs from "
+                                 f"the plain version by {e}")
+        err = max(err, e)
+    census = tx.band_census(tx.lane_bands(bands))
+    longest = [int(r.max()) for r in rows]
+    floor = sum(row_floor_ms(m) for m in longest)
+    bound_ms, bound_by = bound("ydrop_mega", 0, cells)
+    say("main", kernel="ydrop_mega", captured_call=i, chunks=chunks[i],
+        lanes=len(rows[i]), equal_to_plain=True, max_abs_err=err,
+        plain_ms=plain_ms, band_census={
+            "all": census["all"], "longest_lane": census["longest_lane"]},
+        longest_lane_rows_per_call=longest,
+        median_lane_rows_per_call=[float(np.median(r)) for r in rows],
+        band_cells=cells, bound_ms=bound_ms, bound_by=bound_by,
+        chain_floor_ms_total=floor, card=card)
+    return dict(
+        warps_per_lane=k1_warps(), main_path_max_abs_err=err,
+        main_path_plain_ms=plain_ms, main_path_captured_chunks=chunks[i],
+        main_path_longest_lane_rows=max(longest),
+        main_path_longest_lane_rows_per_call=longest,
+        main_path_band_census={
+            k: census[k] for k in ("all", "longest_lane")},
+        main_path_band_cells=cells, main_path_bound_ms=bound_ms,
+        main_path_bound_by=bound_by,
+        main_path_chain_floor_ms=floor,
+        main_path_walk_chain_floor_ms=walk_floor)
+
+
 def walk_bytes(args, got):
     """The walk's bytes and steps: it reads one link byte and writes one
     op byte per step (the rest of the link blocks is never read), and
@@ -1427,6 +1523,28 @@ def chain_capture():
 
 
 @contextlib.contextmanager
+def mega_capture():
+    """Keeps every mega call of the gapped stage inside the block: a copy
+    of its arguments, its keywords, and its outputs but the link bytes
+    (a block of them is 1.6 GB at 128 lanes); yields the list of (args,
+    kwargs, outputs)."""
+    import torch
+    from lastz_tpu_torch.align import ydrop_device
+    calls = []
+
+    def copy(a):
+        if isinstance(a, dict):
+            return {k: v.clone() for k, v in a.items()}
+        return a.clone() if torch.is_tensor(a) else a
+
+    def see(a, kw, out):
+        calls.append(([a[0], a[1], *map(copy, a[2:])], dict(kw),
+                      (out[0], *out[1:3], *out[4:])))
+    with observed(ydrop_device, "ydrop_mega", see):
+        yield calls
+
+
+@contextlib.contextmanager
 def table_watch():
     """Around a pipeline run: the position tables its device build made
     (yielded list), with DevicePositionTable's host-fetch count at 0
@@ -1653,8 +1771,9 @@ def phase_main(card, pair, parent=None):
         argv = [tp, qp, "--stats"]
         port_out = os.path.join(tdir, "port.lav")
         device._CACHE.clear()
-        port_s, launches, st, seed_runs, (probes, built) = run_port(
-            argv, port_out, main_path_probes(), table_watch())
+        port_s, launches, st, seed_runs, (probes, built, mega_calls) = \
+            run_port(argv, port_out, main_path_probes(), table_watch(),
+                     mega_capture())
         say("main", run="lastz_tpu_torch.cli", wall_s=port_s,
             launches=launches, device_seed_searches=seed_runs,
             gapped_anchors=st.gapped_anchors, gapped_device=st.gapped_device,
@@ -1673,6 +1792,10 @@ def phase_main(card, pair, parent=None):
                                  "and uploaded again")
         require_launched(launches, tuple(MAIN_ENTRIES))
         main_ms, walk_floor = main_path_report(probes, launches, card)
+        mega_main = check_main_mega(mega_calls, walk_floor, card)
+        mega_main.update(main_path_total_ms=launch_ms(
+            probes["ydrop_mega"])["total_ms"])
+        del mega_calls
         if st.gapped_device <= 0:
             raise AssertionError("no anchor was extended on the device")
         require_seed_on_device(st, seed_runs, "main path")
@@ -1711,7 +1834,7 @@ def phase_main(card, pair, parent=None):
     chain_launch = probes["chain_launch"]
     if not chain_launch:
         raise AssertionError("main path: no chain walk was captured")
-    return launches, main_ms, walk_floor, chain_launch[0]
+    return launches, main_ms, walk_floor, chain_launch[0], mega_main
 
 
 # the seed modes beside the main path: (name, options, chain-walk mode)
@@ -2046,8 +2169,8 @@ def main(argv=None):
         make_s=round(time.monotonic() - t0, 3))
     rows, refs, chain_err = phase_kernels(card, pair)
     phase_index(card, pair)
-    launches, main_ms, walk_floor, main_chain = phase_main(card, pair,
-                                                           args.parent)
+    launches, main_ms, walk_floor, main_chain, mega_main = phase_main(
+        card, pair, args.parent)
     mode_launches, recover_chain = phase_modes(card, pair)
     batched_launches = phase_batched(card, pair)
     rows.append(chain_row(card, chain_err, main_chain, recover_chain))
@@ -2072,6 +2195,10 @@ def main(argv=None):
             r["main_path_ms"] = main_ms[name]
         if name == "ydrop_traceback":
             r["main_path_chain_floor_ms"] = walk_floor
+        if name == "ydrop_mega":
+            r.update(mega_main)
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   mega_main["main_path_max_abs_err"])
         if name in ("xdrop_scan", "resolve_chains"):
             r["launches_by_seed_mode"] = {
                 k: v[name] for k, v in mode_launches.items()}

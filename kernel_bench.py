@@ -6,7 +6,8 @@ NVIDIA card.
                              |resolve_chains|ydrop_wavefront]
                             --other NAME=SRC.cu [--other NAME=SRC.cu ...]
                             [--prefilled NAME]
-    python3 kernel_bench.py --kernel ydrop_mega
+    python3 kernel_bench.py --kernel ydrop_mega [--other NAME=SRC.cu ...]
+    python3 kernel_bench.py --kernel ydrop_mega --census [--out FILE.json]
 
 --kernel (default ydrop_chunk, K1) names the kernel by its wrapper's
 counter name in chip_smoke.py: K1, K2 (x-drop scan), the traceback
@@ -31,18 +32,32 @@ reversed) on the same inputs:
   main     the 4 Mbp default run of chip_smoke.py phase 3 (for the chain
            walk also with --recoverseeds) with a CUDA event pair around
            every launch of the kernel; the builds' LAV must be equal.
-           K3 is off the CLI and has none
+           K3 is off the CLI and has none, and so has K1's chunk entry
+           since the main path runs K1 through its mega launch
 
 K2's cases include its wide instantiation (K2_WIDE's alphabets), which
 only the package's build has: those cases time the package alone.
 
 --kernel ydrop_mega times K1's mega launch against the loop it replaced
 (chunk_loop: one K1 chunk launch per chunk, the host reading the lanes'
-done flags before each, windows gathered by torch ops), in turns (loop,
-mega, mega, loop): at chip_smoke.py's MEGA_SHAPE, and per call on the
-4 Mbp main path (an event pair and the host clock around each call of
-ydrop_device.ydrop_mega); outputs and LAV must be equal.  It takes no
---other.
+done flags before each, windows gathered by torch ops), or with --other
+against other builds of the mega launch (a parent's
+csrc/ydrop_chunk.cu), in turns (others, mega, mega, others): at
+chip_smoke.py's MEGA_SHAPE, and per call on the 4 Mbp main path (an
+event pair around each C call, kernel_ms, and around each call of
+ydrop_device.ydrop_mega); outputs and LAV must be equal.
+
+--kernel ydrop_mega --census captures the main path's mega calls and
+runs each again through a build of csrc/ydrop_chunk.cu with
+-DLASTZ_K1_PROFILE, whose mega launch records clock64 reads at each
+row's phase boundaries and each row's band width.  It prints, per call,
+each lane's chunks and rows and the longest lane's band census; over
+all calls, the band census (tiles of 288 columns a row: p50, p90 and
+max) and the row breakdown (cycles by phase, cycles a row by its
+tiles, the least row latency).  The profile build's outputs must equal
+the package's, and its row widths the plain version's
+(ydrop_exact.lane_bands) on the call whose lane ran the most rows.
+--out writes the per-call table as JSON.
 
 A chain walk older than this package's (a parent's source) wrote only
 the hits it walked into outputs its wrapper had filled; --prefilled
@@ -58,6 +73,7 @@ import argparse
 import contextlib
 import ctypes
 import io
+import json
 import os
 import re
 import subprocess
@@ -213,7 +229,7 @@ def k3_cases(dev):
 NO_REPLAY = {"xdrop_scan"}
 # kernel: (C entry point, its cases, its runs on the CLI's path: the
 # options of each, or None for a kernel off it)
-KERNELS = {"ydrop_chunk": ("ydrop_chunk_launch", k1_cases, [[]]),
+KERNELS = {"ydrop_chunk": ("ydrop_chunk_launch", k1_cases, None),
            "xdrop_scan": ("xdrop_scan_launch", k2_cases, [[]]),
            "ydrop_traceback": ("ydrop_traceback_launch", walk_cases, [[]]),
            "resolve_chains": ("resolve_chains_launch", chain_cases,
@@ -364,32 +380,54 @@ def chunk_loop(v1c, v2c, a1, a2, low1, high1, low2, high2, rev, M, N,
     return st, prev_off, pack_scalars(st, nblk), tb_all, row_lo, row_hi, col0
 
 
-def mega_bench(card):
+def mega_bench(card, others=None):
     """--kernel ydrop_mega: the mega launch and chunk_loop in turns, at
-    MEGA_SHAPE and per call on the 4 Mbp main path."""
+    MEGA_SHAPE and per call on the 4 Mbp main path; with others, {name:
+    C entry point} of other builds of the mega launch (build_others),
+    each of those in chunk_loop's place.  On the main path each build's
+    C calls have an event pair of their own (kernel_ms, as chip_smoke.py
+    times main_path_ms), beside the pair around each wrapper call."""
     import torch
     from lastz_tpu_torch import cli
     from lastz_tpu_torch.align import ydrop_device
     from lastz_tpu_torch.ops.ydrop_cuda import ydrop_mega
-    impls = {"chunk_loop": chunk_loop, "mega": ydrop_mega}
-    order = ["chunk_loop", "mega", "mega", "chunk_loop"]
+    others = others or {}
+    first = list(others) or ["chunk_loop"]
+    impls = {n: ydrop_mega for n in others} if others else {
+        "chunk_loop": chunk_loop}
+    impls["mega"] = ydrop_mega
+    order = first + ["mega", "mega"] + first[::-1]
+
+    def entry(n):
+        """The C entry point's event pairs while impl n runs."""
+        if n == "chunk_loop":
+            return cs.timed_launches("ydrop_chunk_launch")
+        return cs.timed_launches("ydrop_mega_launch", fn=others.get(n))
+
     dev = torch.device("cuda")
     args, kw = cs.mega_setup(dev, cs.MEGA_SHAPE, 13)
-    outs = {n: fn(*args, **kw) for n, fn in impls.items()}
-    for a, b in zip(outs["mega"][1:], outs["chunk_loop"][1:]):
-        if not torch.equal(a, b):
-            raise AssertionError("the mega launch and the chunk loop differ")
+    outs = {}
+    for n in impls:
+        with entry(n):
+            outs[n] = impls[n](*args, **kw)
+    for n in first:
+        for a, b in zip(outs["mega"], outs[n]):
+            for x, y in ([(a[k], b[k]) for k in a] if isinstance(a, dict)
+                         else [(a, b)]):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"the mega launch and {n} differ")
     n_bytes, cells = cs.mega_bytes(args, outs["mega"])
     bound_ms, bound_by = cs.bound("ydrop_mega", n_bytes, cells)
     ms = {n: [] for n in impls}
     wall = {n: [] for n in impls}
     for n in order:
-        ms[n].append(cs.cuda_ms(lambda: impls[n](*args, **kw), 3))
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        impls[n](*args, **kw)
-        torch.cuda.synchronize()
-        wall[n].append(1000 * (time.monotonic() - t0))
+        with entry(n):
+            ms[n].append(cs.cuda_ms(lambda: impls[n](*args, **kw), 3))
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            impls[n](*args, **kw)
+            torch.cuda.synchronize()
+            wall[n].append(1000 * (time.monotonic() - t0))
     cs.say("kernel_bench", kernel="ydrop_mega", case="table",
            shape=cs.MEGA_SHAPE, chunks=int(outs["mega"][2][12].max()),
            cells=cells, bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
@@ -404,11 +442,10 @@ def mega_bench(card):
             def timed(*a, n=n, **k):
                 e0 = torch.cuda.Event(enable_timing=True)
                 e1 = torch.cuda.Event(enable_timing=True)
-                t0 = time.monotonic()
                 e0.record()
                 out = impls[n](*a, **k)
                 e1.record()
-                calls.append((e0, e1, t0, out[2][12].max()))
+                calls.append((e0, e1, out[2][12].max()))
                 return out
 
             own = ydrop_device.ydrop_mega
@@ -417,7 +454,8 @@ def mega_bench(card):
             t0 = time.monotonic()
             try:
                 with open(out, "w") as f, contextlib.redirect_stdout(f), \
-                        contextlib.redirect_stderr(io.StringIO()):
+                        contextlib.redirect_stderr(io.StringIO()), \
+                        entry(n) as events:
                     rc = cli.main([tp, qp])
             finally:
                 ydrop_device.ydrop_mega = own
@@ -427,16 +465,186 @@ def mega_bench(card):
                 raise RuntimeError(f"the port's CLI exited {rc}")
             with open(out, "rb") as f:
                 lav[i] = f.read()
-            dms = np.array([a.elapsed_time(b) for a, b, _, _ in calls])
+            dms = np.array([a.elapsed_time(b) for a, b, _ in calls])
             cs.say("kernel_bench", kernel="ydrop_mega", run="main", impl=n,
-                   calls=len(calls),
-                   chunks=sum(int(c) for *_, c in calls),
+                   calls=len(calls), chunks=sum(int(c) for *_, c in calls),
                    device_ms_per_call=float(dms.mean()),
-                   device_ms_total=float(dms.sum()), wall_s=wall_s,
-                   card=card)
+                   device_ms_total=float(dms.sum()),
+                   kernel_ms=cs.launch_ms(events), wall_s=wall_s, card=card)
     if len(set(lav.values())) != 1:
-        raise AssertionError("the mega launch and the chunk loop wrote "
-                             "different LAV")
+        raise AssertionError("the builds wrote different LAV")
+
+
+# the row profile's phases (csrc/ydrop_chunk.cu, P_TILE .. P_PROL)
+PHASES = ("tile", "scan", "store", "reductions", "tail", "prolongation")
+PROFILE_ENTRY = "ydrop_mega_profile_launch"
+
+
+def build_profile(tdir):
+    """K1's source built with -DLASTZ_K1_PROFILE into a library of its
+    own: the mega launch with its row profile (PROFILE_ENTRY, the
+    production arguments, then the profile's buffers and room)."""
+    from lastz_tpu_torch.kernels import build
+    lib = os.path.join(tdir, "libk1profile.so")
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", build.CSRC, "-shared",
+           "-DLASTZ_K1_PROFILE", "-o", lib,
+           os.path.join(build.CSRC, "ydrop_chunk.cu")]
+    out = subprocess.run(cmd, capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the profile build:\n"
+                           f"{(out.stdout + out.stderr)[-4000:]}")
+    for line in (out.stdout + out.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas profile:", line.strip(), flush=True)
+    fn = getattr(ctypes.CDLL(lib), PROFILE_ENTRY)
+    fn.argtypes = build._SIGNATURES["ydrop_mega_launch"] + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@contextlib.contextmanager
+def profiled(fn):
+    """Inside the block the mega wrapper launches the profile entry fn;
+    yields a list that gets, for each launch, (phase cycles and rows
+    (B, len(PHASES) + 1) int64, row widths and cycles (B, 2, cap)
+    int32, its event pair)."""
+    import torch
+    from lastz_tpu_torch.kernels import build
+    lib = build.load()
+    own = lib.ydrop_mega_launch
+    got = []
+
+    def call(*a):
+        B, cap = a[24], a[19] * a[26]
+        ph = torch.zeros((B, len(PHASES) + 1), dtype=torch.int64,
+                         device="cuda")
+        rows = torch.zeros((B, 2, cap), dtype=torch.int32, device="cuda")
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        rc = fn(*a, ph.data_ptr(), rows.data_ptr(), cap)
+        e1.record()
+        got.append((ph, rows, e0, e1))
+        return rc
+
+    lib.ydrop_mega_launch = call
+    try:
+        yield got
+    finally:
+        lib.ydrop_mega_launch = own
+
+
+def pct(x, q):
+    return float(np.percentile(x, q)) if len(x) else None
+
+
+def census_bench(card, out_path=None):
+    """--census: the main path's mega calls, captured, each run again
+    through the profile build: the band census (tiles of 288 a row over
+    all rows and each call's longest lane), each lane's chunks and rows
+    a call, and the clock64 breakdown of a row; the profile build's
+    outputs and its row widths must equal the package's and the plain
+    version's (on the call whose lane ran the most rows)."""
+    import torch
+    from lastz_tpu_torch import cli
+    from lastz_tpu_torch.ops import ydrop_exact as tx
+    from lastz_tpu_torch.ops.ydrop_cuda import ydrop_mega
+    os.environ["LASTZ_TORCH_DEVICE"] = "cuda"
+    with tempfile.TemporaryDirectory() as tdir:
+        fn = build_profile(tdir)
+        tp, qp, _, _ = cs.write_pair(tdir, cs.make_pair())
+        with open(os.path.join(tdir, "out.lav"), "w") as f, \
+                contextlib.redirect_stdout(f), \
+                contextlib.redirect_stderr(io.StringIO()), \
+                cs.timed_launches("ydrop_mega_launch") as events, \
+                cs.mega_capture() as calls:
+            if cli.main([tp, qp]) != 0:
+                raise RuntimeError("the port's CLI failed")
+        ms = cs.launch_ms(events)
+    launch_ms = [a.elapsed_time(b) for a, b in events]
+    widths, per_call, phase, row_cyc, row_til = [], [], 0, [], []
+    longest = (0, -1)
+    for i, (args, kw, want) in enumerate(calls):
+        with profiled(fn) as prof:
+            got = ydrop_mega(*args, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(got[0][k], want[0][k]) for k in want[0]) or \
+                not all(torch.equal(a, b) for a, b in
+                        zip((*got[1:3], *got[4:]), want[1:])):
+            raise AssertionError(f"call {i}: the profile build differs")
+        ph, rows, e0, e1 = prof[0]
+        ph, rows = ph.cpu().numpy(), rows.cpu().numpy()
+        nblk = want[2][12].cpu().numpy()
+        n_rows = tx.lane_rows(nblk, want[3].cpu().numpy(),
+                              want[4].cpu().numpy())
+        if not np.array_equal(ph[:, -1], n_rows):
+            raise AssertionError(f"call {i}: profiled rows differ from the "
+                                 f"outputs' rows")
+        w = [rows[b, 0, :n].astype(np.int64) for b, n in enumerate(n_rows)]
+        widths.extend(w)
+        phase = phase + ph[:, :-1].sum(0)
+        for b, n in enumerate(n_rows):
+            row_cyc.append(rows[b, 1, :n])
+            row_til.append(tx.row_tiles(w[b]))
+        c = tx.band_census(w)
+        lane = c["longest_lane"]["lane"]
+        cyc_long = int(rows[lane, 1, :n_rows[lane]].sum())
+        prof_ms = e0.elapsed_time(e1)
+        if n_rows.max() > longest[0]:
+            longest = (int(n_rows.max()), i)
+        per_call.append(dict(
+            call=i, lanes=len(nblk), with_tb=bool(kw.get("with_tb", True)),
+            chunks_max=int(nblk.max()),
+            lanes_by_chunks={int(k): int((nblk == k).sum())
+                             for k in np.unique(nblk)},
+            rows_max=int(n_rows.max()), rows_p50=pct(n_rows, 50),
+            rows_p90=pct(n_rows, 90), rows_sum=int(n_rows.sum()),
+            lane_rows_share=float(n_rows.sum()
+                                  / max(len(n_rows) * n_rows.max(), 1)),
+            rows_after_median_share=float(
+                (n_rows.max() - pct(n_rows, 50)) / max(n_rows.max(), 1)),
+            device_ms=launch_ms[i],
+            ns_per_row_of_longest_lane=1e6 * launch_ms[i]
+            / max(int(n_rows.max()), 1),
+            longest_lane=c["longest_lane"], profile_ms=prof_ms,
+            profile_cycles_of_longest_lane=cyc_long,
+            profile_mhz=cyc_long / max(prof_ms, 1e-9) / 1e3))
+        cs.say("census", **per_call[-1], card=card)
+    # the plain version's widths on the call with the most rows a lane
+    args, kw, _ = calls[longest[1]]
+    bands = []
+    tx.ydrop_mega_plain(*args, bands=bands, **kw)
+    first = sum(len(c[2][0]["done"]) for c in calls[:longest[1]])
+    plain_w = tx.lane_bands(bands)
+    own_w = widths[first: first + len(plain_w)]
+    if len(plain_w) != len(own_w) or not all(
+            np.array_equal(a, b) for a, b in zip(plain_w, own_w)):
+        raise AssertionError("the profile's row widths differ from the "
+                             "plain version's")
+    census = tx.band_census(widths)
+    cyc = np.concatenate(row_cyc)
+    til = np.concatenate(row_til)
+    by_tiles = {int(t): dict(rows=int((til == t).sum()),
+                             mean=float(cyc[til == t].mean()),
+                             min=int(cyc[til == t].min()),
+                             p10=pct(cyc[til == t], 10))
+                for t in np.unique(til)}
+    total = float(phase.sum())
+    cs.say("census", calls=len(calls), device_ms=ms,
+           rows_checked_against_plain=int(sum(len(w) for w in plain_w)),
+           band_census=census["all"], card=card)
+    cs.say("census", breakdown_cycles={
+        p: int(v) for p, v in zip(PHASES, phase)},
+        breakdown_share={p: float(v / total) for p, v in zip(PHASES, phase)},
+        rows=int(len(cyc)), cycles_per_row_mean=float(cyc.mean()),
+        cycles_per_row_by_tiles=by_tiles,
+        least_row_cycles=int(cyc.min()), card=card)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(dict(card=card, calls=per_call, census=census,
+                           by_tiles=by_tiles,
+                           breakdown=dict(zip(PHASES, map(int, phase)))), f)
 
 
 def main(argv=None):
@@ -446,6 +654,12 @@ def main(argv=None):
                     help="the kernel to time (default K1, ydrop_chunk)")
     ap.add_argument("--other", action="append", default=[],
                     help="NAME=SRC.cu: another source of the kernel")
+    ap.add_argument("--census", action="store_true",
+                    help="with --kernel ydrop_mega: the band census, each "
+                    "lane's rows and the row breakdown of the main path's "
+                    "mega calls (profile build)")
+    ap.add_argument("--out", help="with --census: a JSON file for the "
+                    "census's per-call table")
     ap.add_argument("--prefilled", action="append", default=[],
                     help="NAME of an --other chain walk that needs its "
                     "outputs filled first (a source whose wrapper filled "
@@ -459,9 +673,13 @@ def main(argv=None):
     card = cs.card_line()
     print(card, flush=True)
     if args.kernel == "ydrop_mega":
-        if args.other:
-            ap.error("--kernel ydrop_mega takes no --other")
-        mega_bench(card)
+        if args.census:
+            census_bench(card, args.out)
+            return 0
+        with tempfile.TemporaryDirectory() as tdir:
+            mega_bench(card, build_others(
+                "ydrop_mega_launch",
+                [tuple(spec.split("=", 1)) for spec in args.other], tdir))
         return 0
     if not args.other:
         ap.error("--other is required")

@@ -7,75 +7,100 @@
 //
 // A second entry point, ydrop_mega_launch, replaces the device
 // while_loop of ydrop_mega_pallas (lastz_tpu/ops/ydrop_pallas_exact.py
-// :434): each lane's warp runs its chunks back to back through the same
+// :434): each lane's CTA runs its chunks back to back through the same
 // row body (run_chunk), gathering each chunk's codes itself, so a batch
 // of lanes costs one launch and no host read between chunks, and a
 // lane waits on no other lane between chunks.  It computes what
 // ops/ydrop_exact.ydrop_mega_plain computes.
 //
 // What bounds it on an H100: latency.  A DP row depends on the one
-// before it, and a chunk is up to 1024 rows of one lane, so a launch
-// lasts as long as its slowest lane's chain of rows.  A row's work is
-// small (about 20 integer operations and one link byte per band cell,
-// a few hundred cells) and its bytes fewer still; its time is the
-// length of its dependent chain.  With one warp per lane nothing hides
-// that chain: each row costs a fixed part (three warp scans of six
-// dependent shuffles, the row reductions, the scalar tail) plus, per
-// tile, work that grows with the columns each thread holds.  So the
-// design shortens the chain: no block barrier, and only the band's
-// columns.  The earlier design swept the whole window with 16 warps
-// and nine block barriers a row.  k1_bench.py times the two side by
-// side; PERF.md has the numbers.
+// before it, and a lane runs thousands of rows in a launch (the main
+// path's longest lane 5,600 to 6,800), so a launch lasts as long as its
+// longest lane's chain of rows.  A row's work is small (about 20
+// integer operations and one link byte per band cell, a few hundred
+// cells) and its bytes fewer still; its time is the length of its
+// dependent chain.  kernel_bench.py --census measured that chain on
+// the main path (PERF.md): bands of 409 columns at the median, 572 at
+// p90, 722 at most; with one warp a lane, in tiles of 288 columns, a
+// row took about 2,900 cycles a tile, 64% of it the tile's own work
+// (loads, score lookups, the passes' column arithmetic), 22% its three
+// warp scans, and 3 to 4% each the row reductions, the scalar tail,
+// the link stores and the prolongation.  So the design puts the SM's
+// four sub-partitions on one lane's band.
 //
 // The design:
 //
-// * One warp per DP lane and one lane per CTA: at the main path's 128
-//   lanes one warp on each of 128 SMs.  Every scan is a __shfl_up_sync
-//   warp scan and every row reduction a __reduce_*_sync, so the kernel
-//   has no block barrier at all.  Four lanes per CTA (a warp on each
-//   SM sub-partition) ran slower on an H100, since the warps share no
-//   state and each has its own scheduler either way (PERF.md).
-// * Only the live band.  A row touches the columns it can change:
-//   [LYr, RYr), the prolongation [RYr, RYr + p) and the sentinel.  The
-//   sweep over [LYr, RYr) runs in tiles of 32 x CPT consecutive columns
-//   starting at LYr, thread t owning columns t*CPT .. t*CPT + CPT - 1 of
-//   the tile.  Each tile runs the two-pass exact row of
-//   docs/two_pass_exact_row.md in one go: the reset-free decayed chain
-//   (exclusive prefix max), the running best (exclusive prefix max),
-//   then the max-with-resets scan for the exact insertion values.  Each
-//   scan's running value carries from one tile to the next in a
-//   register, so a band of any width up to W works with fixed
-//   registers.  CPT is 5 for bands up to 160 columns and 9 (tiles of
-//   288) past that; both are odd, so the 32 threads' columns fall on 32
-//   different shared-memory banks.  The wide tile is chosen on the main
-//   path's launches, where 9 ran faster than 13; a synthetic band of
-//   600 columns prefers 13, but no path runs it.  A single width costs
-//   the narrow bands dear, and each width is a copy of the tile's code
-//   (a lone warp stalls on every miss of the instruction cache), so
-//   there are two.
-// * No branch in the tile.  A lone warp's latencies hide only behind
-//   its own independent instructions, so the tile's columns must
-//   interleave; the loads are unconditional (clamped to the band) and
-//   every choice is a select (pick(), a PTX selp the compiler cannot
-//   turn back into a branch).
+// * One lane per CTA, four warps (128 threads), at the main path's 128
+//   lanes one CTA on each of 128 SMs, so each of an SM's four schedulers
+//   issues for the same lane.  A row's band [c0, cend) is cut into
+//   tiles of 32 x CPT consecutive columns, thread t of a tile owning
+//   columns t*CPT .. t*CPT + CPT - 1, and the tiles are dealt to the
+//   warps in rounds of four: tile 4k + w is warp w's in round k.  A band
+//   of up to 160 columns is one tile of CPT 5 on warp 0 alone (no
+//   exchange at all); a wider one takes the least CPT of 3, 5 and 9
+//   whose four tiles cover it (384, 640 columns; past 640, tiles of 288
+//   in rounds of 1152), so the main path's rows take one round, three
+//   or four warps each holding 3 or 5 columns a thread.  The three CPTs
+//   are odd, so a warp's 32 threads fall on 32 different shared-memory
+//   banks.
+// * Each tile runs the two-pass exact row of docs/two_pass_exact_row.md
+//   in one go: the reset-free decayed chain (exclusive prefix max), the
+//   running best (exclusive prefix max), then the max-with-resets scan
+//   for the exact insertion values.  Each scan is associative, so a warp
+//   scans its tile with __shfl_up_sync and the warps of a round combine
+//   their tile totals through shared memory: every warp writes its
+//   total, the round's warps meet at one named barrier (bar.sync 1,
+//   32 x warps), and each warp folds the totals of the warps left of it
+//   into its carry, and all of them into the next round's.  A barrier
+//   was chosen over a flag chain (decoupled look-back): the main path's
+//   rows have one round of three or four tiles of equal work, so the
+//   warps reach the exchange together and a flag chain would serialise
+//   the carries for nothing.
+// * No branch in the tile.  A warp's latencies hide only behind its own
+//   independent instructions, so the tile's columns must interleave; the
+//   loads are unconditional (clamped to the band) and every choice is a
+//   select (pick(), a PTX selp the compiler cannot turn back into a
+//   branch).
 // * Row state in shared memory.  CC, DD and the window's b codes live
 //   in the lane's shared memory.  The per-column values one pass hands
 //   the next (csub, d, the insertion values, the gap and prune flags)
-//   stay in registers instead: every scan's prefix for a tile depends
-//   only on the tiles left of it, so a tile runs all its passes before
-//   the next tile starts, and no pass needs a column of another tile.
-//   A tile reads its columns' old CC and DD before it writes any; the
-//   left neighbour's old CC comes by shuffle, and the tile's first
-//   column gets the previous tile's last old CC from a carried
-//   register, so the in-place write never feeds a read of the same
-//   row.  __syncwarp orders one row's shared writes before the next
-//   row's reads (their tiles start at another column).
-// * One sweep for the reductions.  Each thread keeps (row max, its last
-//   column), (boundary max, its last column), the first and last live
-//   column; __reduce_*_sync at the row's end give rmax, kbest, bmax,
-//   kb, firstl and npk (kbest and kb as the largest column whose value
-//   equals the maximum, the plain version's tie rule).  Trimming to the
-//   peak, the boundary ones are not taken at all.
+//   stay in registers: every scan's prefix for a tile depends only on
+//   the tiles left of it, so a tile runs all its passes before its warp
+//   takes its next tile, and no pass needs a column of another tile.
+//   The in-place writes stay sound across warps: a tile reads its
+//   columns' old CC and DD, and the old CC of the column left of it,
+//   before its round's first barrier, and writes its columns only after
+//   the third, so no write of the round feeds a read of it.  A round's
+//   first tile takes that left column's old CC from the round before,
+//   whose last tile handed it over with its scan-1 total.  Columns of
+//   later rounds lie right of every column written before.  Each row
+//   ends with one block barrier, before the row reductions are read,
+//   which also orders its tiles' writes before the next row's reads (at
+//   other columns, on other warps).  The prolongation [RYr, RYr + p)
+//   is not written to shared memory row by row: the next row computes
+//   those columns' CC and DD as it loads them (Pro), from the three
+//   scalars every thread holds, and the chunk's end writes the last
+//   row's.
+// * The row reductions.  Each thread keeps (row max, its last column),
+//   (boundary max, its last column), the first and last live column;
+//   each warp reduces them with __reduce_*_sync, writes them to shared
+//   memory, and after the block barrier every thread combines the four
+//   warps' entries: the row max is the largest, and its column the
+//   largest column among the warps that reach it, so the highest column
+//   reaching the row max wins across warps as within one (the plain
+//   version's tie rule).  Trimming to the peak, the boundary ones are
+//   not taken at all.  The reset scan's value at column ci, the band's
+//   last, is written to shared memory by the thread that owns it.
+//   Every thread then runs the scalar tail itself, so every warp holds
+//   the lane's state and no other handoff is needed; the entries are
+//   kept by row parity, so a warp that runs ahead into the next row
+//   never overwrites an entry another warp has yet to read.
+// * What the measurements showed (PERF.md): the main path's row fell
+//   from about 4,600 to 3,100 cycles, and its breakdown is now scans
+//   (with their exchanges) 40%, tile work 36%, row reductions 11%, the
+//   tail 6%, the prolongation's link bytes 5% and the tiles' link bytes
+//   2%.  Staging the link bytes through shared memory for 16-byte
+//   stores was left out: their stores are 2% of a row.
 // * Band-only link bytes.  Each link byte is stored from the register
 //   of its column, only over [LYr, max(RYr + p, sentinel + 1)) clipped
 //   to W.  Every other byte is the zero the buffer arrived with: the
@@ -84,10 +109,11 @@
 //   zeroed).  tb == nullptr is the score-only mode and writes no byte.
 // * The plain version sets every column outside a row's written range
 //   to NEG.  A band-only row does not, so at the end of the chunk each
-//   lane that ran a row writes NEG outside its last row's range; a lane
-//   that ran no row keeps its re-anchored input.  Inside the range every
-//   column was written by that row, and the next row reads only inside
-//   it (its [LY, RY) lies in the last row's written range).
+//   lane that ran a row writes NEG outside its last row's range (all
+//   128 threads, after the row's last barrier); a lane that ran no row
+//   keeps its re-anchored input.  Inside the range every column was
+//   written by that row, and the next row reads only inside it (its
+//   [LY, RY) lies in the last row's written range).
 // * The scalar tail: (i_exit - thresh) // gapE by a double reciprocal
 //   of gapE and one correction step (an integer division by a runtime
 //   divisor is a long dependent chain), and the next row's code read a
@@ -103,8 +129,13 @@ namespace {
 
 using namespace lastz;
 
-constexpr int NARROW_CPT = 5;     // columns per thread of bands <= 160
-constexpr int WIDE_CPT = 9;       // and of wider bands, in tiles of 288
+constexpr int WARPS = 4;               // warps of a lane's CTA
+constexpr int THREADS = 32 * WARPS;
+constexpr int CPT_S = 3;  // columns per thread of bands up to 4 x 96
+constexpr int CPT_M = 5;  // up to 4 x 160
+constexpr int CPT_L = 9;  // wider bands, in rounds of 4 x 288
+constexpr int MAX_ROUNDS = 2;  // rounds of a band of up to 2048 columns
+static_assert(MAX_ROUNDS * WARPS * 32 * CPT_L >= 2048, "rounds of W");
 constexpr int SMEM_LIMIT = 227 * 1024;
 constexpr int SMEM_DEFAULT = 48 * 1024;
 
@@ -135,30 +166,21 @@ __host__ __device__ constexpr int lane_smem_bytes(int W, int rows) {
   return 12 * W + ((rows + 3) & ~3);
 }
 
-// Exclusive warp prefix max of the threads' aggregates `v`, continuing
-// from `carry` (the max over every earlier tile); advances `carry` past
-// this tile.  __shfl_up_sync hands lanes below the offset their own
-// value, which max leaves unchanged, so no lane test is needed.
-__device__ __forceinline__ int warp_excl_max(int v, int& carry) {
-  int x = v;
+// Inclusive warp prefix max.  __shfl_up_sync hands lanes below the
+// offset their own value, which max leaves unchanged, so no lane test
+// is needed.
+__device__ __forceinline__ int warp_incl_max(int x) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1)
     x = max(x, __shfl_up_sync(kFullMask, x, o));
-  const int ex = __shfl_up_sync(kFullMask, x, 1);
-  const int tot = __shfl_sync(kFullMask, x, 31);
-  const int pre = (threadIdx.x & 31) ? max(carry, ex) : carry;
-  carry = max(carry, tot);
-  return pre;
+  return x;
 }
 
-// Exclusive warp scan of the max-with-resets operator
+// Inclusive warp scan of the max-with-resets operator
 //   (s1,r1) x (s2,r2) = (r2 ? s2 : max(s1,s2), r1|r2)
-// over the threads' aggregates (s, r), continuing from the running
-// value `carry` of the earlier tiles; returns the s part and advances
-// `carry` past this tile.  (A lane's own pair is the operator's fixed
-// point, so lanes below the offset need no test either.)
-__device__ __forceinline__ int warp_excl_reset(int s, int r, int& carry) {
-  int xs = s, xr = r;
+// (a lane's own pair is the operator's fixed point, so lanes below the
+// offset need no test either).
+__device__ __forceinline__ void warp_incl_reset(int& xs, int& xr) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const int ys = __shfl_up_sync(kFullMask, xs, o);
@@ -166,13 +188,11 @@ __device__ __forceinline__ int warp_excl_reset(int s, int r, int& carry) {
     xs = xr ? xs : max(ys, xs);
     xr = xr | yr;
   }
-  const int es = __shfl_up_sync(kFullMask, xs, 1);
-  const int er = __shfl_up_sync(kFullMask, xr, 1);
-  const int ts = __shfl_sync(kFullMask, xs, 31);
-  const int tr = __shfl_sync(kFullMask, xr, 31);
-  const int pre = (threadIdx.x & 31) ? (er ? es : max(carry, es)) : carry;
-  carry = tr ? ts : max(carry, ts);
-  return pre;
+}
+
+// The barrier of a round's nw warps (warps 0 .. nw - 1).
+__device__ __forceinline__ void round_sync(int nw) {
+  asm volatile("bar.sync 1, %0;" ::"r"(nw * 32) : "memory");
 }
 
 // n // d for d > 0 through inv = 1.0 / d: for |n| < 2^31 the product is
@@ -185,26 +205,30 @@ __device__ __forceinline__ int floordiv_pos(int n, int d, double inv) {
   return q + (r >= d) - (r < 0);
 }
 
-// What every thread of a lane's warp holds alike for one row.
-struct Row {
-  const int* srow;  // the row's line of the score table
-  int LYr, cend;    // live columns [max(LYr, 0), cend)
-  int ci;           // the column whose reset-scan value gives i_exit
-  int best;         // best score before the row
-  int colN;         // the column at the sequence end: b_off + l == N
-  int rowM;         // 1: the row is the last one (row == M)
-  int gap_e, gap_oe, y_drop;
+// The bench's row profile (kernel_bench.py --census), kept only by the
+// PROF instantiation of the mega kernel, whose C entry point exists only
+// where the source is built with -DLASTZ_K1_PROFILE: clock64 reads of
+// warp 0 at a row's phase boundaries, summed by phase, and each row's
+// band width and cycles.  The production instantiation (PROF false)
+// reads no clock.
+enum { P_TILE, P_SCAN, P_STORE, P_RED, P_TAIL, P_PROL, NPHASE };
+
+struct RowProf {
+  long long t0, t;        // the row's first clock, the last mark
+  long long ph[NPHASE];   // cycles of each phase over the lane's rows
+  int* row_w;             // each row's band width (cend - c0)
+  int* row_c;             // and its cycles
+  int n, cap;             // rows recorded, room
 };
 
-// What a row's sweep carries from tile to tile, and hands the row's end:
-// the old CC of the column left of the tile, the three scans' running
-// values, the reset scan's value at column ci (in its owner thread),
-// and each thread's share of the row reductions.
-struct Sweep {
-  int car_cc, car1, car2, car3, iex;
-  int rt, kt, bt, kbt, fl, npt;
-  int ael, ab;  // 1: some cell is eligible / a boundary cell
-};
+template <bool PROF>
+__device__ __forceinline__ void mark(RowProf& p, int phase) {
+  if constexpr (PROF) {
+    const long long u = clock64();
+    p.ph[phase] += u - p.t;
+    p.t = u;
+  }
+}
 
 // p ? a : b for p in {0, 1}, as one select.  Left to itself the
 // compiler turns chains of ?: in the tile into branches, and a branch
@@ -222,18 +246,100 @@ __device__ __forceinline__ int pick(int p, int a, int b) {
 #endif
 }
 
-// One tile of 32 x CPT consecutive columns from `base`; thread t owns
-// base + t*CPT .. base + t*CPT + CPT - 1.  Columns at or past cend (only
-// in the band's last tile) count as pruned: they write nothing, enter
-// no reduction, and the scan values they leave behind are read by no
-// live column.  The body has no branch, so the compiler can interleave
-// the columns' independent work: a lone warp has no other warp to hide
-// its latencies behind.
-template <int CPT, bool TRIM>
-__device__ __forceinline__ void sweep_tile(int base, const Row& x, Sweep& a,
-                                           int* s_cc, int* s_dd,
-                                           const int* s_bc,
-                                           unsigned char* tbrow) {
+// The last row's prolongation, which no thread writes to shared
+// memory before the chunk's end: its columns l >= from hold
+// CC = iex - (l - from) * gapE and DD = CC - gapOE while l - from < p,
+// and NEG past that (the sentinel).  from == W: none.
+struct Pro {
+  int from, p, iex;
+};
+
+// What every thread of a lane holds alike for one row.
+struct Row {
+  const int* srow;  // the row's line of the score table
+  int LYr, cend;    // live columns [max(LYr, 0), cend)
+  int ci;           // the column whose reset-scan value gives i_exit
+  int best;         // best score before the row
+  int colN;         // the column at the sequence end: b_off + l == N
+  int rowM;         // 1: the row is the last one (row == M)
+  int gap_e, gap_oe, y_drop;
+  Pro q;            // the row before's prolongation
+};
+
+// The old CC and DD of column l: shared memory, or the row before's
+// prolongation q at and past its first column.
+__device__ __forceinline__ void old_cell(const int* s_cc, const int* s_dd,
+                                         const Pro& q, int gap_e, int gap_oe,
+                                         int l, int& cc, int& dd) {
+  const int pj = wsub(l, q.from);
+  const int pro = wsub(q.iex, wmul(pj, gap_e));
+  const int in = pj < q.p;
+  const int fresh = l >= q.from;
+  cc = pick(fresh, pick(in, pro, NEG), s_cc[l]);
+  dd = pick(fresh, pick(in, wsub(pro, gap_oe), NEG), s_dd[l]);
+}
+
+// What a row's sweep carries from round to round, and hands the row's
+// end: the old CC of the column left of the round, the three scans'
+// running values, and each thread's share of the row reductions.
+struct Sweep {
+  int car_cc, car1, car2, car3;
+  int rt, kt, bt, kbt, fl, npt;
+  int ael, ab;  // 1: some cell is eligible / a boundary cell
+};
+
+
+// What a lane's warps exchange in shared memory: each round's tile
+// totals of the three scans (scan 1's with the old CC of the tile's
+// last column), a slot per round and warp, so that a warp with no tile
+// in a round (which meets none of its barriers) never finds its slots
+// overwritten; and by row parity each warp's row reductions and the
+// reset scan's value at column ci.
+struct Xchg {
+  int2 s1[MAX_ROUNDS][WARPS];
+  int s2[MAX_ROUNDS][WARPS];
+  int2 s3[MAX_ROUNDS][WARPS];
+  int4 re[2][WARPS][2];  // (rmax, kbest, firstl, npk), (anyel, bmax, kb, anyb)
+  int iex[2];
+};
+
+// The lane's shared memory: CC, DD and b codes (int), the chunk's row
+// codes (bytes), the score table and the warps' exchange.
+struct Smem {
+  int* cc;
+  int* dd;
+  int* bc;
+  unsigned char* ar;
+  const int* sub;
+  Xchg* xs;
+};
+
+__device__ __forceinline__ Smem carve(int* smem, const int* s_sub, Xchg* xs,
+                                      int W) {
+  Smem m;
+  m.cc = smem;
+  m.dd = m.cc + W;
+  m.bc = m.dd + W;
+  m.ar = reinterpret_cast<unsigned char*>(m.bc + W);
+  m.sub = s_sub;
+  m.xs = xs;
+  return m;
+}
+
+// Warp w's tile of round k: 32 x CPT consecutive columns from `base`,
+// thread t owning base + t*CPT .. base + t*CPT + CPT - 1, beside the
+// tiles of the round's other nw - 1 warps.  Columns at or past cend
+// (only in the band's last tile) count as pruned: they write nothing,
+// enter no reduction, and the scan values they leave behind are read by
+// no live column.  The body has no branch but the exchange's, so the
+// compiler can interleave the columns' independent work.
+template <int CPT, bool TRIM, bool PROF>
+__device__ __forceinline__ void sweep_tile(int base, int k, int w, int nw,
+                                           const Row& x, Sweep& a,
+                                           const Smem& m, int par,
+                                           unsigned char* tbrow,
+                                           RowProf& pf) {
+  Xchg& xs = *m.xs;
   const int wl = threadIdx.x & 31;
   const int cb = base + wl * CPT;
   const int lge0 = wmul(cb, x.gap_e);
@@ -243,9 +349,16 @@ __device__ __forceinline__ void sweep_tile(int base, const Row& x, Sweep& a,
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
     const int lc = min(cb + c, last);
-    cold[c] = s_cc[lc];
-    d[c] = s_dd[lc];
-    csub[c] = s_bc[lc];
+    old_cell(m.cc, m.dd, x.q, x.gap_e, x.gap_oe, lc, cold[c], d[c]);
+    csub[c] = m.bc[lc];
+  }
+  // the old CC left of the tile: from the round before (warp 0), or the
+  // last column of warp w - 1's tile, which it writes only after this
+  // round's third barrier
+  int left_tile = a.car_cc;
+  if (w) {
+    int dd_;
+    old_cell(m.cc, m.dd, x.q, x.gap_e, x.gap_oe, base - 1, left_tile, dd_);
   }
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
@@ -255,10 +368,10 @@ __device__ __forceinline__ void sweep_tile(int base, const Row& x, Sweep& a,
     d[c] = pick(act, d[c], NEG);
   }
   // old CC of column l - 1: own register, the left thread's last, or
-  // the previous tile's last (read before this tile wrote anything)
+  // the left tile's last
   const int left = __shfl_up_sync(kFullMask, cold[CPT - 1], 1);
-  const int prev0 = wl ? left : a.car_cc;
-  a.car_cc = __shfl_sync(kFullMask, cold[CPT - 1], 31);
+  const int prev0 = wl ? left : left_tile;
+  const int last_cc = __shfl_sync(kFullMask, cold[CPT - 1], 31);
   int tmax = ISENT;
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
@@ -270,9 +383,35 @@ __device__ __forceinline__ void sweep_tile(int base, const Row& x, Sweep& a,
                   wadd(wsub(csub[c], x.gap_oe), wadd(lge, x.gap_e)), ISENT);
     tmax = max(tmax, eff[c]);
   }
+  mark<PROF>(pf, P_TILE);
 
   // pass 1: reset-free decayed chain -> gap / prune decisions
-  int acc = warp_excl_max(tmax, a.car1);
+  int acc;
+  {
+    const int inc = warp_incl_max(tmax);
+    const int ex = __shfl_up_sync(kFullMask, inc, 1);
+    int in = a.car1;
+    if (nw > 1) {
+      if (wl == 31) xs.s1[k][w] = make_int2(inc, last_cc);
+      round_sync(nw);
+      int tot = a.car1;
+#pragma unroll
+      for (int j = 0; j < WARPS; ++j) {
+        if (j < nw) {
+          const int2 t = xs.s1[k][j];
+          if (j < w) in = max(in, t.x);
+          tot = max(tot, t.x);
+          if (j == nw - 1) a.car_cc = t.y;
+        }
+      }
+      a.car1 = tot;
+    } else {
+      a.car1 = max(a.car1, __shfl_sync(kFullMask, inc, 31));
+      a.car_cc = last_cc;
+    }
+    acc = wl ? max(in, ex) : in;
+  }
+  mark<PROF>(pf, P_SCAN);
   tmax = SENT32;
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
@@ -283,7 +422,30 @@ __device__ __forceinline__ void sweep_tile(int base, const Row& x, Sweep& a,
     g[c] = (d[c] > csub[c]) | (iff[c] > csub[c]);
     tmax = max(tmax, pick(g[c], SENT32, csub[c]));
   }
-  acc = warp_excl_max(tmax, a.car2);
+  mark<PROF>(pf, P_TILE);
+  {
+    const int inc = warp_incl_max(tmax);
+    const int ex = __shfl_up_sync(kFullMask, inc, 1);
+    int in = a.car2;
+    if (nw > 1) {
+      if (wl == 31) xs.s2[k][w] = inc;
+      round_sync(nw);
+      int tot = a.car2;
+#pragma unroll
+      for (int j = 0; j < WARPS; ++j) {
+        if (j < nw) {
+          const int t = xs.s2[k][j];
+          if (j < w) in = max(in, t);
+          tot = max(tot, t);
+        }
+      }
+      a.car2 = tot;
+    } else {
+      a.car2 = max(a.car2, __shfl_sync(kFullMask, inc, 31));
+    }
+    acc = wl ? max(in, ex) : in;
+  }
+  mark<PROF>(pf, P_SCAN);
   int ts = ISENT, tr = 0;
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
@@ -299,16 +461,44 @@ __device__ __forceinline__ void sweep_tile(int base, const Row& x, Sweep& a,
     ts = pick(pr[c], es[c], max(ts, es[c]));
     tr |= pr[c];
   }
+  mark<PROF>(pf, P_TILE);
 
   // pass 2: one reset scan -> exact insertion values for the links
-  acc = warp_excl_reset(ts, tr, a.car3);
+  {
+    int ss = ts, sr = tr;
+    warp_incl_reset(ss, sr);
+    const int es1 = __shfl_up_sync(kFullMask, ss, 1);
+    const int er1 = __shfl_up_sync(kFullMask, sr, 1);
+    int in = a.car3;
+    if (nw > 1) {
+      if (wl == 31) xs.s3[k][w] = make_int2(ss, sr);
+      round_sync(nw);
+      int c3 = a.car3;
+#pragma unroll
+      for (int j = 0; j < WARPS; ++j) {
+        if (j < nw) {
+          const int2 t = xs.s3[k][j];
+          if (j == w) in = c3;
+          c3 = t.y ? t.x : max(c3, t.x);
+        }
+      }
+      a.car3 = c3;
+    } else {
+      const int ts1 = __shfl_sync(kFullMask, ss, 31);
+      const int tr1 = __shfl_sync(kFullMask, sr, 31);
+      a.car3 = tr1 ? ts1 : max(a.car3, ts1);
+    }
+    acc = wl ? (er1 ? es1 : max(in, es1)) : in;
+  }
+  mark<PROF>(pf, P_SCAN);
+  int lks[CPT];
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
     const int l = cb + c;
     const int lge = wadd(lge0, c * x.gap_e);
     const int sexcl = (c == 0 && l == 0) ? NEG : acc;
     acc = pick(pr[c], es[c], max(acc, es[c]));
-    a.iex = pick(l == x.ci, acc, a.iex);
+    if (l == x.ci) xs.iex[par] = acc;
     const int ivec = wsub(sexcl, lge);
     const int copen = wsub(csub[c], x.gap_oe);
     const int ddec = wsub(d[c], x.gap_e);
@@ -316,14 +506,13 @@ __device__ __forceinline__ void sweep_tile(int base, const Row& x, Sweep& a,
     const int lk_gap = pick(d[c] >= ivec, LINK_GAP_D, LINK_GAP_I);
     const int lk_sub = C_FROM_C | pick(copen > ddec, 0, D_EXTEND) |
                        pick(copen > idec, 0, I_EXTEND);
-    const int lk = pick(pr[c], 0, pick(g[c], lk_gap, lk_sub));
+    lks[c] = pick(pr[c], 0, pick(g[c], lk_gap, lk_sub));
     const int ccn = pick(pr[c], NEG, pick(g[c], max(d[c], ivec), csub[c]));
     const int ddn = pick(pr[c], NEG, pick(g[c], ddec, max(copen, ddec)));
     if (l < x.cend) {
-      s_cc[l] = ccn;
-      s_dd[l] = ddn;
+      m.cc[l] = ccn;
+      m.dd[l] = ddn;
     }
-    if (l < x.cend && tbrow) tbrow[l] = (unsigned char)lk;
     const int live = pr[c] ^ 1;
     const int elig = live & (g[c] ^ 1);
     a.fl = min(a.fl, pick(live, l, BIG));
@@ -340,32 +529,50 @@ __device__ __forceinline__ void sweep_tile(int base, const Row& x, Sweep& a,
       a.ab |= atb;
     }
   }
+  mark<PROF>(pf, P_TILE);
+  if (tbrow) {
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+      if (cb + c < x.cend) tbrow[cb + c] = (unsigned char)lks[c];
+  }
+  mark<PROF>(pf, P_STORE);
 }
 
-// The row's sweep over [c0, cend) in tiles of 32 x CPT columns; returns
-// the reset scan's value at column ci (the last swept column).
-template <int CPT, bool TRIM>
-__device__ __forceinline__ int sweep_band(int c0, const Row& x, Sweep& a,
-                                          int* s_cc, int* s_dd,
-                                          const int* s_bc,
-                                          unsigned char* tbrow) {
+// The band [c0, c0 + width) in tiles of 32 x CPT columns, dealt to the
+// warps in rounds of four; a warp with no tile in a round has none in
+// the later ones, and goes to the row's end.
+template <int CPT, bool TRIM, bool PROF>
+__device__ __forceinline__ void sweep_band(int c0, int width, const Row& x,
+                                           Sweep& a, const Smem& m, int par,
+                                           unsigned char* tbrow,
+                                           RowProf& pf) {
   constexpr int TILE = 32 * CPT;
-  for (int base = c0; base < x.cend; base += TILE)
-    sweep_tile<CPT, TRIM>(base, x, a, s_cc, s_dd, s_bc, tbrow);
-  return __shfl_sync(kFullMask, a.iex, ((x.ci - c0) % TILE) / CPT);
+  const int T = (width + TILE - 1) / TILE;
+  const int w = threadIdx.x >> 5;
+  for (int k = 0; WARPS * k < T; ++k) {
+    const int nw = min(WARPS, T - WARPS * k);
+    if (w >= nw) break;
+    sweep_tile<CPT, TRIM, PROF>(c0 + (WARPS * k + w) * TILE, k, w, nw, x, a,
+                                m, par, tbrow, pf);
+  }
 }
 
-// The band's sweep: one tile of 5 columns per thread (160 columns), or
-// tiles of 9 (288).
-template <bool TRIM>
-__device__ __forceinline__ int sweep(int c0, int width, const Row& x,
-                                     Sweep& a, int* s_cc, int* s_dd,
-                                     const int* s_bc, unsigned char* tbrow) {
-  return width <= 32 * NARROW_CPT
-             ? sweep_band<NARROW_CPT, TRIM>(c0, x, a, s_cc, s_dd, s_bc, tbrow)
-             : sweep_band<WIDE_CPT, TRIM>(c0, x, a, s_cc, s_dd, s_bc, tbrow);
+// The band's sweep: one tile of CPT_M on warp 0 alone for bands up to
+// 160 columns (no exchange at all), else tiles of the least CPT whose
+// four tiles cover the band.
+template <bool TRIM, bool PROF>
+__device__ __forceinline__ void sweep(int c0, int width, const Row& x,
+                                      Sweep& a, const Smem& m, int par,
+                                      unsigned char* tbrow, RowProf& pf) {
+  if (width <= 32 * CPT_M)
+    sweep_band<CPT_M, TRIM, PROF>(c0, width, x, a, m, par, tbrow, pf);
+  else if (width <= WARPS * 32 * CPT_S)
+    sweep_band<CPT_S, TRIM, PROF>(c0, width, x, a, m, par, tbrow, pf);
+  else if (width <= WARPS * 32 * CPT_M)
+    sweep_band<CPT_M, TRIM, PROF>(c0, width, x, a, m, par, tbrow, pf);
+  else
+    sweep_band<CPT_L, TRIM, PROF>(c0, width, x, a, m, par, tbrow, pf);
 }
-
 
 // A lane's 13 scalars (ops/ydrop_exact.SCALAR_KEYS order).
 struct Lane {
@@ -407,54 +614,43 @@ __device__ __forceinline__ void store_lane(int* p, const Lane& s) {
   p[S_DONE] = s.done;
 }
 
-// The lane's shared memory: CC, DD and b codes (int), the chunk's row
-// codes (bytes), and the score table.
-struct Smem {
-  int* cc;
-  int* dd;
-  int* bc;
-  unsigned char* ar;
-  const int* sub;
-};
-
-__device__ __forceinline__ Smem carve(int* smem, const int* s_sub, int W) {
-  Smem m;
-  m.cc = smem;
-  m.dd = m.cc + W;
-  m.bc = m.dd + W;
-  m.ar = reinterpret_cast<unsigned char*>(m.bc + W);
-  m.sub = s_sub;
-  return m;
-}
-
-// One chunk of one lane: up to `rows` DP rows from the lane's state `s`
-// over the window in shared memory (CC/DD already re-anchored to b_off,
-// the window's b codes and the chunk's row codes loaded), the link
+// One chunk of one lane, run by all of its CTA's threads alike: up to
+// `rows` DP rows from the lane's state `s` over the window in shared
+// memory (CC/DD already re-anchored to b_off, the window's b codes and
+// the chunk's row codes loaded, and a block barrier since), the link
 // bytes of local row r + 1 at tbl + (r + 1) * W (tbl == nullptr: none).
-// On return CC/DD hold the plain version's whole-window values: NEG
-// outside the last row's written range once a row ran.  The row body
-// of both K1 entry points.
-template <bool TRIM>
+// On return, after a block barrier, CC/DD hold the plain version's
+// whole-window values: NEG outside the last row's written range once a
+// row ran.  The row body of both K1 entry points.
+template <bool TRIM, bool PROF>
 __device__ __forceinline__ void run_chunk(Lane& s, const Smem& m, int b_off,
                                           int M, int N, int W, int rows,
                                           unsigned char* tbl, int gap_e,
                                           int gap_oe, int y_drop, int tb_cap,
-                                          int tail) {
-  const int wl = threadIdx.x & 31;
+                                          int tail, RowProf& pf) {
+  const int tid = threadIdx.x;
+  const int w = tid >> 5;
+  const int wl = tid & 31;
   const double inv_ge = gap_e > 0 ? 1.0 / gap_e : 0.0;
   int stopped = s.done;
   bool ran = false;
   int lo_w = 0, hi_w = 0;  // the last row's written range
+  Pro q;                   // the last row's prolongation
+  q.from = W;
+  q.p = 0;
+  q.iex = 0;
 
   int acode = m.ar[0];
   for (int r = 0; r < rows; ++r) {
     if (stopped) break;
+    if constexpr (PROF) pf.t0 = pf.t = clock64();
     // truncation check (gapped_extend.c:3621-3660): break BEFORE the row
     if (wadd(s.tbp, wadd(max(wsub(s.RY, s.LY), 0), tail)) >= tb_cap) {
       s.status |= ST_TRUNCATED;
       s.done = 1;
       break;
     }
+    const int par = r & 1;
     unsigned char* tbrow = tbl ? tbl + (long long)(r + 1) * W : nullptr;
     Row x;
     x.srow = m.sub + acode * 16;
@@ -469,6 +665,7 @@ __device__ __forceinline__ void run_chunk(Lane& s, const Smem& m, int b_off,
     x.gap_e = gap_e;
     x.gap_oe = gap_oe;
     x.y_drop = y_drop;
+    x.q = q;
     const int c0 = max(x.LYr, 0);
     Sweep a;
     a.car_cc = NEG;
@@ -476,7 +673,6 @@ __device__ __forceinline__ void run_chunk(Lane& s, const Smem& m, int b_off,
     a.car2 = SENT32;
     // reset scan: column c0 - 1 < LYr is a reset to NEG + c0 * gapE
     a.car3 = c0 > 0 ? wadd(NEG, wmul(c0, gap_e)) : ISENT;
-    a.iex = ISENT;
     a.rt = SENT32;
     a.kt = -1;
     a.bt = SENT32;
@@ -488,25 +684,57 @@ __device__ __forceinline__ void run_chunk(Lane& s, const Smem& m, int b_off,
 
     // the sweep over the band
     const int width = x.cend - c0;
-    int i_exit_raw;
-    if (width <= 0) {
-      // no live column: ci lies left of LYr (a reset) or is inactive
-      i_exit_raw = x.ci < x.LYr ? wadd(NEG, wmul(x.ci + 1, gap_e)) : ISENT;
-    } else {
-      i_exit_raw = sweep<TRIM>(c0, width, x, a, m.cc, m.dd, m.bc, tbrow);
-    }
+    if (width > 0) sweep<TRIM, PROF>(c0, width, x, a, m, par, tbrow, pf);
 
-    // row reductions: the maxima, then the last column reaching each
-    // (trimming to the peak, no cell is a boundary cell)
-    const int rmax = __reduce_max_sync(kFullMask, a.rt);
-    const int bmax = TRIM ? SENT32 : __reduce_max_sync(kFullMask, a.bt);
-    const int firstl = __reduce_min_sync(kFullMask, a.fl);
-    const int npk = __reduce_max_sync(kFullMask, a.npt);
-    const bool anyel = __any_sync(kFullMask, a.ael);
-    const bool anyb = TRIM ? false : __any_sync(kFullMask, a.ab);
-    const int kbest = __reduce_max_sync(kFullMask, a.rt == rmax ? a.kt : -1);
-    const int kb =
-        TRIM ? -1 : __reduce_max_sync(kFullMask, a.bt == bmax ? a.kbt : -1);
+    // row reductions: each warp's maxima, then the last column reaching
+    // each (trimming to the peak, no cell is a boundary cell); then the
+    // four warps' entries, combined by every thread
+    {
+      const int rm = __reduce_max_sync(kFullMask, a.rt);
+      const int bm = TRIM ? SENT32 : __reduce_max_sync(kFullMask, a.bt);
+      const int fl = __reduce_min_sync(kFullMask, a.fl);
+      const int np = __reduce_max_sync(kFullMask, a.npt);
+      const int ae = __any_sync(kFullMask, a.ael);
+      const int ab = TRIM ? 0 : __any_sync(kFullMask, a.ab);
+      const int kt = __reduce_max_sync(kFullMask, a.rt == rm ? a.kt : -1);
+      const int kbt =
+          TRIM ? -1 : __reduce_max_sync(kFullMask, a.bt == bm ? a.kbt : -1);
+      if (wl == 0) {
+        m.xs->re[par][w][0] = make_int4(rm, kt, fl, np);
+        m.xs->re[par][w][1] = make_int4(ae, bm, kbt, ab);
+      }
+    }
+    __syncthreads();  // every warp's entry, i_exit and tile precede reads
+    int4 e0[WARPS], e1[WARPS];
+#pragma unroll
+    for (int j = 0; j < WARPS; ++j) {
+      e0[j] = m.xs->re[par][j][0];
+      e1[j] = m.xs->re[par][j][1];
+    }
+    int rmax = SENT32, bmax = SENT32, firstl = BIG, npk = -1;
+    bool anyel = false, anyb = false;
+#pragma unroll
+    for (int j = 0; j < WARPS; ++j) {
+      rmax = max(rmax, e0[j].x);
+      firstl = min(firstl, e0[j].z);
+      npk = max(npk, e0[j].w);
+      anyel |= e1[j].x != 0;
+      if (!TRIM) {
+        bmax = max(bmax, e1[j].y);
+        anyb |= e1[j].w != 0;
+      }
+    }
+    int kbest = -1, kb = -1;
+#pragma unroll
+    for (int j = 0; j < WARPS; ++j) {
+      kbest = max(kbest, e0[j].x == rmax ? e0[j].y : -1);
+      if (!TRIM) kb = max(kb, e1[j].y == bmax ? e1[j].z : -1);
+    }
+    // no live column: ci lies left of LYr (a reset) or is inactive
+    const int i_exit_raw =
+        width > 0 ? m.xs->iex[par]
+                  : (x.ci < x.LYr ? wadd(NEG, wmul(x.ci + 1, gap_e)) : ISENT);
+    mark<PROF>(pf, P_RED);
 
     // best / end / boundary (the boundary update runs after best
     // within a cell, so it wins at or past the best column)
@@ -544,21 +772,32 @@ __device__ __forceinline__ void run_chunk(Lane& s, const Smem& m, int b_off,
     const bool has_sent = RYs <= N;
     const int RYf = wadd(RYs, has_sent ? 1 : 0);
     const int sent_l = wsub(RYs, b_off);
+    mark<PROF>(pf, P_TAIL);
 
     // the written range [lo, hi): the sweep's [c0, cend), then the
     // prolongation [RYr, RYr + p) and the sentinel (at RYr + p unless
-    // the band shrank, when it is a pruned column the sweep wrote)
+    // the band shrank, when it is a pruned column the sweep wrote).  The
+    // prolongation's CC and DD are not written here: the next row
+    // computes them as it loads (Pro), so this row ends at its one
+    // block barrier, and the chunk's end writes the last row's.  Its
+    // link bytes go out now.
     const int lo = max(min(x.LYr, RYr), 0);
     const int hi = min(max(wadd(RYr, p), has_sent ? wadd(sent_l, 1) : 0), W);
-    for (int l = max(RYr, 0) + wl; l < hi; l += 32) {
-      const int pj = wsub(l, RYr);
-      const bool prolong = pj < p && !(has_sent && l == sent_l);
-      const int pro = wsub(i_exit, wmul(pj, gap_e));
-      m.cc[l] = prolong ? pro : NEG;
-      m.dd[l] = prolong ? wsub(pro, gap_oe) : NEG;
-      if (tbrow) tbrow[l] = (unsigned char)(prolong ? C_FROM_I : 0);
+    if (tbrow) {
+      for (int l = max(RYr, 0) + tid; l < hi; l += THREADS)
+        tbrow[l] = (unsigned char)(wsub(l, RYr) < p ? C_FROM_I : 0);
     }
-    __syncwarp();  // this row's shared writes precede the next row's reads
+    q.from = RYr;
+    q.p = p;
+    q.iex = i_exit;
+    mark<PROF>(pf, P_PROL);
+    if constexpr (PROF) {
+      if (tid == 0 && pf.n < pf.cap) {
+        pf.row_w[pf.n] = width;
+        pf.row_c[pf.n] = (int)(pf.t - pf.t0);
+      }
+      pf.n++;
+    }
 
     const bool window_end = wsub(RYf, b_off) > W;
     const bool width_over = wsub(RYf, LYn) > W || wadd(K, p) > W;
@@ -576,20 +815,23 @@ __device__ __forceinline__ void run_chunk(Lane& s, const Smem& m, int b_off,
     s.maxRY = max(s.maxRY, RYf);
   }
 
-  // the whole window: NEG outside the last row's written range
+  // the whole window: the last row's prolongation, and NEG outside its
+  // written range (every read of the last row's tiles preceded its
+  // block barrier, and none read past its RYr)
   if (ran) {
-    for (int l = wl; l < W; l += 32) {
-      if (l < lo_w || l >= hi_w) {
-        m.cc[l] = NEG;
-        m.dd[l] = NEG;
-      }
+    for (int l = tid; l < W; l += THREADS) {
+      int cc, dd;
+      old_cell(m.cc, m.dd, q, gap_e, gap_oe, l, cc, dd);
+      const bool out = l < lo_w || l >= hi_w;
+      m.cc[l] = out ? NEG : cc;
+      m.dd[l] = out ? NEG : dd;
     }
-    __syncwarp();
   }
+  __syncthreads();
 }
 
 template <bool TRIM>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(THREADS)
 ydrop_chunk_kernel(const int* __restrict__ a_small,
                    const int* __restrict__ b_small,
                    const int* __restrict__ b_off_a,
@@ -602,11 +844,12 @@ ydrop_chunk_kernel(const int* __restrict__ a_small,
                    int tb_cap, int tail) {
   extern __shared__ int smem[];
   __shared__ int s_sub[256];
+  __shared__ __align__(16) Xchg xs;
 
-  const int wl = threadIdx.x;
+  const int tid = threadIdx.x;
   const int lane_id = blockIdx.x;
-  for (int i = wl; i < 256; i += 32) s_sub[i] = subsmall[i];
-  const Smem m = carve(smem, s_sub, W);
+  for (int i = tid; i < 256; i += THREADS) s_sub[i] = subsmall[i];
+  const Smem m = carve(smem, s_sub, &xs, W);
 
   int* scl = sc + (long long)lane_id * NS;
   Lane s = load_lane(scl);
@@ -618,32 +861,34 @@ ydrop_chunk_kernel(const int* __restrict__ a_small,
   const int* bl = b_small + (long long)lane_id * W;
 
   // window re-anchor: lane l takes old lane l + shift, NEG past the end
-  for (int l = wl; l < W; l += 32) {
+  for (int l = tid; l < W; l += THREADS) {
     const int src = l + sh;
     m.cc[l] = src < W ? ccl[src] : NEG;
     m.dd[l] = src < W ? ddl[src] : NEG;
     m.bc[l] = bl[l] & 15;
   }
-  for (int i = wl; i < rows; i += 32)
+  for (int i = tid; i < rows; i += THREADS)
     m.ar[i] = (unsigned char)(a_small[(long long)lane_id * rows + i] & 15);
-  __syncwarp();  // the score table, window and row codes precede any row
+  __syncthreads();  // the score table, window and row codes precede rows
 
-  run_chunk<TRIM>(s, m, b_off, M_a[lane_id], N_a[lane_id], W, rows,
-                  tb ? tb + (long long)lane_id * tb_lane_stride : nullptr,
-                  gap_e, gap_oe, y_drop, tb_cap, tail);
+  RowProf pf;
+  run_chunk<TRIM, false>(s, m, b_off, M_a[lane_id], N_a[lane_id], W, rows,
+                         tb ? tb + (long long)lane_id * tb_lane_stride
+                            : nullptr,
+                         gap_e, gap_oe, y_drop, tb_cap, tail, pf);
 
-  for (int l = wl; l < W; l += 32) {
+  for (int l = tid; l < W; l += THREADS) {
     ccl[l] = m.cc[l];
     ddl[l] = m.dd[l];
   }
-  if (wl == 0) store_lane(scl, s);
+  if (tid == 0) store_lane(scl, s);
 }
 
 // The mega launch (replaces ydrop_mega_pallas's device while_loop): a
-// lane's warp runs its chunks one after another until the lane is done
+// lane's CTA runs its chunks one after another until the lane is done
 // or max_blocks chunks have run, as lastz_tpu's ydrop_mega does for
 // each lane of its vmap.  Between chunks CC/DD stay in shared memory
-// and are re-anchored there; the warp gathers each chunk's row and
+// and are re-anchored there; the CTA gathers each chunk's row and
 // window codes from the resident compact codes itself, with the index
 // arithmetic of ops/ydrop_exact.gather_windows.  Chunk k of a lane
 // writes its link bytes into block k of tb_all and its row_lo, row_hi
@@ -653,8 +898,8 @@ struct MegaLane {
   int a1, a2, low1, high1, low2, high2, rev;
 };
 
-template <bool TRIM>
-__global__ void __launch_bounds__(32)
+template <bool TRIM, bool PROF>
+__global__ void __launch_bounds__(THREADS)
 ydrop_mega_kernel(const signed char* __restrict__ v1c, int L1,
                   const signed char* __restrict__ v2c, int L2,
                   const int* __restrict__ a1_a, const int* __restrict__ a2_a,
@@ -671,14 +916,16 @@ ydrop_mega_kernel(const signed char* __restrict__ v1c, int L1,
                   int* __restrict__ row_lo, int* __restrict__ row_hi,
                   int* __restrict__ col0, int* __restrict__ nblk_a, int W,
                   int rows, int gap_e, int gap_oe, int y_drop, int tb_cap,
-                  int tail) {
+                  int tail, long long* __restrict__ prof_ph,
+                  int* __restrict__ prof_rows, int prof_cap) {
   extern __shared__ int smem[];
   __shared__ int s_sub[256];
+  __shared__ __align__(16) Xchg xs;
 
-  const int wl = threadIdx.x;
+  const int tid = threadIdx.x;
   const int lane_id = blockIdx.x;
-  for (int i = wl; i < 256; i += 32) s_sub[i] = subsmall[i];
-  const Smem m = carve(smem, s_sub, W);
+  for (int i = tid; i < 256; i += THREADS) s_sub[i] = subsmall[i];
+  const Smem m = carve(smem, s_sub, &xs, W);
 
   int* scl = sc + (long long)lane_id * NS;
   Lane s = load_lane(scl);
@@ -696,7 +943,7 @@ ydrop_mega_kernel(const signed char* __restrict__ v1c, int L1,
 
   int* ccl = CCg + (long long)lane_id * W;
   int* ddl = DDg + (long long)lane_id * W;
-  for (int l = wl; l < W; l += 32) {
+  for (int l = tid; l < W; l += THREADS) {
     m.cc[l] = ccl[l];
     m.dd[l] = ddl[l];
   }
@@ -707,50 +954,59 @@ ydrop_mega_kernel(const signed char* __restrict__ v1c, int L1,
   int* hi_out = row_hi + (long long)lane_id * max_blocks;
   int* c0_out = col0 + (long long)lane_id * max_blocks;
 
+  RowProf pf;
+  if constexpr (PROF) {
+    for (int i = 0; i < NPHASE; ++i) pf.ph[i] = 0;
+    pf.row_w = prof_rows + (long long)lane_id * 2 * prof_cap;
+    pf.row_c = pf.row_w + prof_cap;
+    pf.n = 0;
+    pf.cap = prof_cap;
+  }
   int k = 0;
   for (; k < max_blocks && !s.done; ++k) {
     const int row_base = wsub(s.row, 1);
     const int b_off = s.LY;  // the lane is not done
     const int sh = min(max(wsub(b_off, prev_off), 0), W);
-    __syncwarp();  // the last chunk's shared writes precede these reads
-    // re-anchor in place, 32 columns at a time: each step reads its
+    __syncthreads();  // the last chunk's shared writes precede these reads
+    // re-anchor in place, THREADS columns at a time: each step reads its
     // sources before any thread writes, and later steps read only
     // columns right of every column written so far
     if (sh) {
-      for (int l0 = 0; l0 < W; l0 += 32) {
-        const int l = l0 + wl;
+      for (int l0 = 0; l0 < W; l0 += THREADS) {
+        const int l = l0 + tid;
         const int src = l + sh;
         const int cc = src < W ? m.cc[src] : NEG;
         const int dd = src < W ? m.dd[src] : NEG;
-        __syncwarp();
+        __syncthreads();
         if (l < W) {
           m.cc[l] = cc;
           m.dd[l] = dd;
         }
-        __syncwarp();
+        __syncthreads();
       }
     }
     // the window: column c = b_off + l reads v2[a2 + c], or going left
     // v2[a2 + 1 - c]; row r reads v1[a1 + 1 + row_base + r], or
     // v1[a1 - row_base - r]; out of range reads code 0
-    for (int l = wl; l < W; l += 32) {
+    for (int l = tid; l < W; l += THREADS) {
       const int c = wadd(b_off, l);
       const int i = g.rev ? wsub(wadd(g.a2, 1), c) : wadd(g.a2, c);
       const bool ok = g.rev ? (i >= g.low2 && c >= 1)
                             : (i < g.high2 && i >= g.low2);
       m.bc[l] = ok ? v2c[min(max(i, 0), L2 - 1)] & 15 : 0;
     }
-    for (int r = wl; r < rows; r += 32) {
+    for (int r = tid; r < rows; r += THREADS) {
       const int i = g.rev ? wsub(wsub(g.a1, row_base), r)
                           : wadd(wadd(wadd(g.a1, 1), row_base), r);
       const bool ok = g.rev ? i >= g.low1 : (i < g.high1 && i >= g.low1);
       m.ar[r] = (unsigned char)(ok ? v1c[min(max(i, 0), L1 - 1)] & 15 : 0);
     }
-    __syncwarp();  // the window and row codes precede the chunk's rows
+    __syncthreads();  // the window and row codes precede the chunk's rows
 
-    run_chunk<TRIM>(s, m, b_off, M, N, W, rows, tbl ? tbl + k * blk : nullptr,
-                    gap_e, gap_oe, y_drop, tb_cap, tail);
-    if (wl == 0) {
+    run_chunk<TRIM, PROF>(s, m, b_off, M, N, W, rows,
+                          tbl ? tbl + k * blk : nullptr, gap_e, gap_oe,
+                          y_drop, tb_cap, tail, pf);
+    if (tid == 0) {
       lo_out[k] = wadd(row_base, 1);
       hi_out[k] = s.rows_used;
       c0_out[k] = b_off;
@@ -758,14 +1014,19 @@ ydrop_mega_kernel(const signed char* __restrict__ v1c, int L1,
     prev_off = b_off;
   }
 
-  for (int l = wl; l < W; l += 32) {
+  for (int l = tid; l < W; l += THREADS) {
     ccl[l] = m.cc[l];
     ddl[l] = m.dd[l];
   }
-  if (wl == 0) {
+  if (tid == 0) {
     store_lane(scl, s);
     prev_off_a[lane_id] = prev_off;
     nblk_a[lane_id] = k;
+    if constexpr (PROF) {
+      long long* ph = prof_ph + (long long)lane_id * (NPHASE + 1);
+      for (int i = 0; i < NPHASE; ++i) ph[i] = pf.ph[i];
+      ph[NPHASE] = pf.n;
+    }
   }
 }
 
@@ -789,14 +1050,14 @@ int launch(const int* a_small, const int* b_small, const int* b_off,
   const long long shm = lane_smem_bytes(W, rows);
   const int e = allow_smem(ydrop_chunk_kernel<TRIM>, shm);
   if (e) return e;
-  // one CTA of one warp per lane
-  ydrop_chunk_kernel<TRIM><<<B, 32, (size_t)shm, stream>>>(
+  // one CTA of four warps per lane
+  ydrop_chunk_kernel<TRIM><<<B, THREADS, (size_t)shm, stream>>>(
       a_small, b_small, b_off, shift, M, N, CC, DD, sc, subsmall, tb,
       tb_lane_stride, W, rows, gap_e, gap_oe, y_drop, tb_cap, tail);
   return (int)cudaGetLastError();
 }
 
-template <bool TRIM>
+template <bool TRIM, bool PROF>
 int launch_mega(const signed char* v1c, int L1, const signed char* v2c,
                 int L2, const int* a1, const int* a2, const int* low1,
                 const int* high1, const int* low2, const int* high2,
@@ -805,14 +1066,16 @@ int launch_mega(const signed char* v1c, int L1, const signed char* v2c,
                 unsigned char* tb_all, int max_blocks, int* row_lo,
                 int* row_hi, int* col0, int* nblk, int B, int W, int rows,
                 int gap_e, int gap_oe, int y_drop, int tb_cap, int tail,
-                cudaStream_t stream) {
+                cudaStream_t stream, long long* prof_ph = nullptr,
+                int* prof_rows = nullptr, int prof_cap = 0) {
   const long long shm = lane_smem_bytes(W, rows);
-  const int e = allow_smem(ydrop_mega_kernel<TRIM>, shm);
+  const int e = allow_smem(ydrop_mega_kernel<TRIM, PROF>, shm);
   if (e) return e;
-  ydrop_mega_kernel<TRIM><<<B, 32, (size_t)shm, stream>>>(
+  ydrop_mega_kernel<TRIM, PROF><<<B, THREADS, (size_t)shm, stream>>>(
       v1c, L1, v2c, L2, a1, a2, low1, high1, low2, high2, rev, M, N, CC, DD,
       sc, prev_off, subsmall, tb_all, max_blocks, row_lo, row_hi, col0, nblk,
-      W, rows, gap_e, gap_oe, y_drop, tb_cap, tail);
+      W, rows, gap_e, gap_oe, y_drop, tb_cap, tail, prof_ph, prof_rows,
+      prof_cap);
   return (int)cudaGetLastError();
 }
 
@@ -863,14 +1126,48 @@ extern "C" int ydrop_mega_launch(
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   return trim_to_peak
-             ? launch_mega<true>(v1c, L1, v2c, L2, a1, a2, low1, high1, low2,
-                                 high2, rev, M, N, CC, DD, sc, prev_off,
-                                 subsmall, tb_all, max_blocks, row_lo, row_hi,
-                                 col0, nblk, B, W, rows, gap_e, gap_oe,
-                                 y_drop, tb_cap, tail, st)
-             : launch_mega<false>(v1c, L1, v2c, L2, a1, a2, low1, high1, low2,
-                                  high2, rev, M, N, CC, DD, sc, prev_off,
-                                  subsmall, tb_all, max_blocks, row_lo,
-                                  row_hi, col0, nblk, B, W, rows, gap_e,
-                                  gap_oe, y_drop, tb_cap, tail, st);
+             ? launch_mega<true, false>(
+                   v1c, L1, v2c, L2, a1, a2, low1, high1, low2, high2, rev, M,
+                   N, CC, DD, sc, prev_off, subsmall, tb_all, max_blocks,
+                   row_lo, row_hi, col0, nblk, B, W, rows, gap_e, gap_oe,
+                   y_drop, tb_cap, tail, st)
+             : launch_mega<false, false>(
+                   v1c, L1, v2c, L2, a1, a2, low1, high1, low2, high2, rev, M,
+                   N, CC, DD, sc, prev_off, subsmall, tb_all, max_blocks,
+                   row_lo, row_hi, col0, nblk, B, W, rows, gap_e, gap_oe,
+                   y_drop, tb_cap, tail, st);
 }
+
+#ifdef LASTZ_K1_PROFILE
+// The mega launch with the row profile (kernel_bench.py --census builds
+// this source with -DLASTZ_K1_PROFILE into a library of its own):
+// ydrop_mega_launch's arguments, then prof_ph (B, NPHASE + 1) int64, each
+// lane's cycles by phase (P_TILE, P_SCAN, P_STORE, P_RED, P_TAIL, P_PROL)
+// and its rows, and prof_rows (B, 2, prof_cap) int32, each row's band
+// width and cycles.
+extern "C" int ydrop_mega_profile_launch(
+    const signed char* v1c, int L1, const signed char* v2c, int L2,
+    const int* a1, const int* a2, const int* low1, const int* high1,
+    const int* low2, const int* high2, const unsigned char* rev,
+    const int* M, const int* N, int* CC, int* DD, int* sc, int* prev_off,
+    const int* subsmall, unsigned char* tb_all, int max_blocks, int* row_lo,
+    int* row_hi, int* col0, int* nblk, int B, int W, int rows, int gap_e,
+    int gap_oe, int y_drop, int trim_to_peak, int tb_cap, int tail,
+    void* stream, long long* prof_ph, int* prof_rows, int prof_cap) {
+  if (B <= 0 || W <= 0 || W > 2048 || rows <= 0 || max_blocks <= 0 ||
+      L1 <= 0 || L2 <= 0 || prof_cap <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return trim_to_peak
+             ? launch_mega<true, true>(
+                   v1c, L1, v2c, L2, a1, a2, low1, high1, low2, high2, rev, M,
+                   N, CC, DD, sc, prev_off, subsmall, tb_all, max_blocks,
+                   row_lo, row_hi, col0, nblk, B, W, rows, gap_e, gap_oe,
+                   y_drop, tb_cap, tail, st, prof_ph, prof_rows, prof_cap)
+             : launch_mega<false, true>(
+                   v1c, L1, v2c, L2, a1, a2, low1, high1, low2, high2, rev, M,
+                   N, CC, DD, sc, prev_off, subsmall, tb_all, max_blocks,
+                   row_lo, row_hi, col0, nblk, B, W, rows, gap_e, gap_oe,
+                   y_drop, tb_cap, tail, st, prof_ph, prof_rows, prof_cap);
+}
+#endif

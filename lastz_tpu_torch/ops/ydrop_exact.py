@@ -182,13 +182,14 @@ def _reanchor(x, shift, W):
 def ydrop_chunk_plain(a_small, b_small, b_off, shift, M, N, state,
                       subsmall, *, gap_e: int, gap_oe: int, y_drop: int,
                       lanes: int, rows: int, alpha: int,
-                      trim_to_peak: bool, tb_cap: int):
+                      trim_to_peak: bool, tb_cap: int, bands=None):
     """Process up to `rows` DP rows for each of B anchors, resuming
     from `state` (a dict of (B,) / (B, W) tensors whose CC/DD lane
     origin is b_off - shift).  a_small (B, rows) holds the compact
     codes of rows row_base+1 .., b_small (B, W) those of columns
     b_off + l.  Returns (state', tb (B, rows+1, W) uint8) with tb
-    indexed by local row; row 0 is zero."""
+    indexed by local row; row 0 is zero.  With a list `bands`, each
+    row appends (ran (B,) bool, its band width RY - LY (B,))."""
     del alpha  # the table lookup needs no select chain
     dev = a_small.device
     B = a_small.shape[0]
@@ -346,6 +347,8 @@ def ydrop_chunk_plain(a_small, b_small, b_off, shift, M, N, state,
         done = done | trunc | (keep & (dead | (row >= M) | width_over))
         stopped = stopped | done | (keep & window_end)
 
+        if bands is not None:
+            bands.append((keep[:, 0], K[:, 0]))
         tb[:, r + 1] = torch.where(keep, tb_row, 0).to(torch.uint8)
         CC = torch.where(keep, CC_new, CC)
         DD = torch.where(keep, DD_new, DD)
@@ -405,11 +408,13 @@ def ydrop_mega_plain(v1c, v2c, a1, a2, low1, high1, low2, high2, rev, M,
                      N, state, prev_off0, subsmall, *, gap_e: int,
                      gap_oe: int, y_drop: int, lanes: int, rows: int,
                      max_blocks: int, alpha: int, trim_to_peak: bool,
-                     tb_cap: int, with_tb: bool = True):
+                     tb_cap: int, with_tb: bool = True, bands=None):
     """Up to `max_blocks` resumable chunks per lane, same contract as
     the JAX ydrop_mega: returns (state', prev_off', packed (13, B),
     tb_all (B, max_blocks, rows+1, lanes), row_lo, row_hi, col0
     (B, max_blocks)); without `with_tb`, tb_all is (B, 1, 1, 1) zeros.
+    With a list `bands`, every row run appends to it as in
+    ydrop_chunk_plain (lane_bands reads it).
     The plain version of the mega launch of csrc/ydrop_chunk.cu: all
     lanes in lockstep, a chunk at a time through ydrop_chunk_plain,
     lanes already done riding along unchanged, and one any(~done) read
@@ -440,7 +445,7 @@ def ydrop_mega_plain(v1c, v2c, a1, a2, low1, high1, low2, high2, rev, M,
                                       low2, high2, rev, row_base, b_off,
                                       rows, W)
         st, tb = ydrop_chunk_plain(a_win, b_win, b_off, shift, M, N, st,
-                                   subsmall, **kw)
+                                   subsmall, bands=bands, **kw)
         if with_tb:
             tb_all[:, k] = tb
         row_lo[:, k] = torch.where(active, row_base + 1, 0)
@@ -453,6 +458,68 @@ def ydrop_mega_plain(v1c, v2c, a1, a2, low1, high1, low2, high2, rev, M,
 
 
 ydrop_mega_plain.host_reads = 0
+
+
+# The band census's tiles, as K1's one-warp row body swept a band before
+# csrc/ydrop_chunk.cu took four warps a lane: bands up to NARROW_TILE
+# columns one narrow tile, wider ones tiles of WIDE_TILE columns
+NARROW_TILE = 160
+WIDE_TILE = 288
+
+
+def lane_bands(bands):
+    """Each lane's band widths, row by row, from the list that
+    ydrop_mega_plain(..., bands=list) filled: a list of B int64 numpy
+    arrays."""
+    if not bands:
+        return []
+    ran = torch.stack([r for r, _ in bands], 1).cpu().numpy()
+    width = torch.stack([w for _, w in bands], 1).cpu().numpy()
+    return [width[b][ran[b]].astype(np.int64) for b in range(len(ran))]
+
+
+def row_tiles(width):
+    """The census's tiles for rows of band `width` (numpy array)."""
+    w = np.asarray(width, np.int64)
+    return np.where(w <= 0, 0, np.where(w <= NARROW_TILE, 1,
+                                        -(-w // WIDE_TILE)))
+
+
+def lane_rows(nblk, row_lo, row_hi):
+    """The rows each lane ran in a mega launch, from its outputs: the
+    sum over its chunks k < nblk of row_hi - row_lo + 1 (numpy)."""
+    nblk = np.asarray(nblk)
+    span = np.asarray(row_hi, np.int64) - np.asarray(row_lo, np.int64) + 1
+    ran = np.arange(span.shape[1])[None, :] < nblk[:, None]
+    return np.where(ran, span, 0).sum(1)
+
+
+def band_census(widths):
+    """The band census of a mega launch from each lane's band widths
+    row by row (lane_bands): rows, tiles a row (p50, p90, max) over all
+    rows and over the longest lane's rows, and each lane's rows."""
+    rows = np.array([len(w) for w in widths], np.int64)
+    every = (np.concatenate(widths) if len(widths)
+             else np.zeros(0, np.int64))
+
+    def stats(w):
+        t = row_tiles(w)
+        if not len(t):
+            return dict(rows=0)
+        return dict(rows=int(len(t)),
+                    tiles_p50=float(np.percentile(t, 50)),
+                    tiles_p90=float(np.percentile(t, 90)),
+                    tiles_max=int(t.max()),
+                    width_p50=float(np.percentile(w, 50)),
+                    width_p90=float(np.percentile(w, 90)),
+                    width_max=int(np.max(w)),
+                    rows_by_tiles={int(k): int((t == k).sum())
+                                   for k in np.unique(t)})
+    longest = int(rows.argmax()) if len(rows) else -1
+    return dict(all=stats(every),
+                longest_lane=dict(lane=longest, **stats(
+                    widths[longest] if len(widths) else every)),
+                lane_rows=rows.tolist())
 
 
 def pack_scalars(st, nblk):

@@ -18,7 +18,8 @@ from lastz_tpu_torch.device import carry_state
 from lastz_tpu_torch.ops import ydrop_exact as tx
 from lastz_tpu_torch.ops import ydrop_pallas as tp
 from lastz_tpu_torch.ops.xdrop_cuda import xdrop_scan
-from lastz_tpu_torch.ops.ydrop_cuda import traceback_mega, ydrop_mega
+from lastz_tpu_torch.ops.ydrop_cuda import (traceback_mega, ydrop_chunk,
+                                            ydrop_mega)
 
 from chip_smoke import (CHAIN_EDGES, WALK_EDGE_CAPS, WALK_EDGE_GEOMETRY,
                         XDROP_EDGES, chain_edge_inputs, chain_walk_args,
@@ -267,6 +268,191 @@ def test_cuda_ydrop_wide_band_edges(y_drop, min_band, with_tb):
     assert int(st_c["status"][1]) & tx.ST_TRUNCATED
     assert int(st_c["rows_used"][1]) == 0
     assert int(st_c["rows_used"][2]) == 100
+
+
+def _k1_tiles(width):
+    """The tiles K1 sweeps a row of `width` columns in: one of 160
+    columns (warp 0 alone) up to 160, else 32 x CPT columns each, CPT
+    the least of 3, 5 and 9 whose four tiles (one a warp) cover the
+    band, tiles of 288 past that (csrc/ydrop_chunk.cu)."""
+    if width <= 160:
+        return 1
+    for cpt in (3, 5):
+        if width <= 4 * 32 * cpt:
+            return -(-width // (32 * cpt))
+    return -(-width // 288)
+
+
+def _on(dev, a):
+    if isinstance(a, dict):
+        return {k: _on(dev, v) for k, v in a.items()}
+    if torch.is_tensor(a):
+        return a.to(dev)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _assert_equal(got, want, names, what):
+    """Every output of a kernel call against its plain version's."""
+    for k in tx.STATE_KEYS:
+        assert torch.equal(got[0][k].cpu(), want[0][k]), f"{what}: {k}"
+    for name, a, b in zip(names, got[1:], want[1:]):
+        if b is None:
+            assert a is None, f"{what}: {name}"
+        else:
+            assert torch.equal(a.cpu(), b), f"{what}: {name}"
+
+
+MEGA_NAMES = ("prev_off", "packed", "tb_all", "row_lo", "row_hi", "col0")
+# y-drops whose bands (in the main path's 1536-column window) take one
+# tile on warp 0 only (87 to 124 columns: narrow-only lanes), two tiles
+# (185 to 250 columns), four tiles in a round (300 to 397), more than
+# four (two rounds: up to 1446 columns), and bands past the window
+LAYOUT_CASES = {"one_tile": 3000, "two_tiles": 6000, "four_tiles": 9400,
+                "rounds": 36000, "overflow": 60000}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_tb", [True, False], ids=["links", "scores"])
+@pytest.mark.parametrize("trim", [True, False], ids=["trim", "notrim"])
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_cuda_k1_warp_layout(case, trim, with_tb):
+    """K1's mega launch and its chunk entry, four warps a lane, against
+    their plain versions on bands of each tile class of LAYOUT_CASES,
+    with a lane that ends in its first chunk (M = 60) beside lanes that
+    run both blocks, and a lane truncated by tb_cap a few rows in."""
+    dev = _card()
+    cpu = torch.device("cpu")
+    seqs, lane, st_np, subsmall, kw = _mega_inputs(
+        seed=5, n=6000, Bh=3, W=1536, y_drop=LAYOUT_CASES[case], rows=128,
+        max_blocks=2)
+    kw["trim_to_peak"] = trim
+    lane = tuple(a.copy() for a in lane)
+    lane[7][1] = 60                         # M: ends in the first chunk
+    st_np = {k: v.copy() for k, v in st_np.items()}
+    tail = tx.y_drop_tail(kw["y_drop"], kw["gap_e"])
+    st_np["tbp"][2] = kw["tb_cap"] - tail - 3000   # truncated rows in
+    B = lane[0].shape[0]
+    args = (*seqs, *lane, st_np, np.zeros(B, np.int32), subsmall)
+    got = ydrop_mega(*(_on(dev, a) for a in args), with_tb=with_tb, **kw)
+    bands = []
+    want = tx.ydrop_mega_plain(*(_on(cpu, a) for a in args), with_tb=with_tb,
+                               bands=bands, **kw)
+    _assert_equal(got, want, MEGA_NAMES, f"mega {case}")
+    tiles = [_k1_tiles(int(w)) for w in np.concatenate(tx.lane_bands(bands))]
+    nblk, status = want[2][12], want[0]["status"]
+    if case == "one_tile":
+        assert max(tiles) == 1
+    elif case == "overflow":
+        assert bool((status & tx.ST_WIDTH_OVERFLOW).any())
+    else:
+        need = {"two_tiles": 2, "four_tiles": 4, "rounds": 5}[case]
+        assert need in tiles or (need == 5 and max(tiles) > 4)
+        assert int(nblk[1]) == 1 and int(nblk.max()) == kw["max_blocks"]
+        assert int(status[2]) & tx.ST_TRUNCATED
+        assert int(want[0]["rows_used"][2]) > 0
+    # the chunk entry on the first chunk's windows
+    ckw = {k: v for k, v in kw.items() if k != "max_blocks"}
+    st0 = _on(cpu, st_np)
+    a_win, b_win = tx.gather_windows(
+        *(_on(cpu, a) for a in seqs + lane[:7]), st0["row"] - 1, st0["LY"],
+        kw["rows"], kw["lanes"])
+    cargs = (a_win, b_win, st0["LY"], st0["LY"], *(_on(cpu, a)
+                                                    for a in lane[7:]))
+    cgot = ydrop_chunk(*(_on(dev, a) for a in cargs), _on(dev, st_np),
+                       _on(dev, subsmall), want_tb=with_tb, **ckw)
+    cwant = tx.ydrop_chunk_plain(*cargs, st0, _on(cpu, subsmall), **ckw)
+    _assert_equal(cgot, (cwant[0], cwant[1] if with_tb else None),
+                  ("tb",), f"chunk {case}")
+
+
+def _tie_inputs(W=1536, rows=4, trim=True):
+    """Chunk-entry inputs whose first row ties: lanes with bands of 90,
+    300, 600, 1000 and 1400 columns from column 0, CC flat over the band
+    (every cell of the first row equal) or flat with two equal peaks in
+    tiles of different warps, DD far below, every code the same; a lane
+    with M = 1 makes every cell a boundary cell (untrimmed)."""
+    sc = new_dna_score_set()
+    seq = np.frombuffer(b"ACGT" * 4, np.uint8)
+    code_map, subsmall = tx.make_compact_alphabet([seq, seq], sc.sub)
+    ge = int(sc.gap_extend)
+    goe = int(sc.gap_open + sc.gap_extend)
+    widths = [90, 300, 600, 1000, 1400]
+    lanes = [(w, peaks, m) for w in widths for peaks in (0, 1)
+             for m in (1000, 1)]
+    B = len(lanes)
+    CC = np.full((B, W), tx.NEG, np.int32)
+    DD = np.full((B, W), -1_000_000, np.int32)
+    st = {k: np.zeros(B, np.int32) for k in tx.SCALAR_KEYS}
+    M = np.empty(B, np.int32)
+    for b, (w, peaks, m) in enumerate(lanes):
+        CC[b, :w] = 1000
+        if peaks:
+            CC[b, [w // 8, w - w // 6]] = 3000
+        st["RY"][b] = w
+        st["maxRY"][b] = w
+        M[b] = m
+    st["row"][:] = 1
+    st["bflag"] = st["bflag"].astype(bool)
+    st["done"] = np.zeros(B, bool)
+    st.update(CC=CC, DD=DD)
+    a_small = np.full((B, rows), code_map[ord("A")], np.int32)
+    b_small = np.full((B, W), code_map[ord("A")], np.int32)
+    zero = np.zeros(B, np.int32)
+    N = np.full(B, 5000, np.int32)
+    kw = dict(gap_e=ge, gap_oe=goe, y_drop=9400, lanes=W, rows=rows,
+              alpha=16, trim_to_peak=trim, tb_cap=80 * 1024 * 1024)
+    return (a_small, b_small, zero, zero, M, N), st, subsmall, kw, lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_tb", [True, False], ids=["links", "scores"])
+@pytest.mark.parametrize("trim", [True, False], ids=["trim", "notrim"])
+def test_cuda_k1_ties_across_warps(trim, with_tb):
+    """K1's chunk entry on rows whose maximum is reached by equal cells
+    in the tiles of several warps (a flat band, or two equal peaks in
+    two warps' tiles; untrimmed, every cell a boundary cell on lanes
+    with M = 1): the highest column wins, as in the plain version, and
+    every output equals it, for one row and for four."""
+    dev = _card()
+    cpu = torch.device("cpu")
+    for rows in (1, 4):
+        args, st, subsmall, kw, lanes = _tie_inputs(rows=rows, trim=trim)
+        got = ydrop_chunk(*(_on(dev, a) for a in args), _on(dev, st),
+                          _on(dev, subsmall), want_tb=with_tb, **kw)
+        want = tx.ydrop_chunk_plain(*(_on(cpu, a) for a in args),
+                                    _on(cpu, st), _on(cpu, subsmall), **kw)
+        _assert_equal(got, (want[0], want[1] if with_tb else None),
+                      ("tb",), f"ties rows={rows}")
+        if rows == 1:
+            end2 = want[0]["end2"].tolist()
+            for b, (w, peaks, m) in enumerate(lanes):
+                # the last eligible column, or the right peak's next one
+                assert end2[b] == (w - w // 6 + 1 if peaks else w - 1), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_tb", [True, False], ids=["links", "scores"])
+@pytest.mark.parametrize("shift", [37, 300, 1000, 1600])
+def test_cuda_mega_reanchor_shift(shift, with_tb):
+    """K1's mega launch resumed with its window origin `shift` columns
+    left of the lanes' LY, so that the in-place re-anchor moves CC/DD
+    across the 128 columns its threads take a step (and past the
+    window, 1600), against the plain version."""
+    dev = _card()
+    cpu = torch.device("cpu")
+    seqs, lane, st_np, subsmall, kw = _mega_inputs(
+        seed=5, n=6000, Bh=2, W=1536, y_drop=9400, rows=128, max_blocks=1)
+    B = lane[0].shape[0]
+    first = tx.ydrop_mega_plain(
+        *(_on(cpu, a) for a in (*seqs, *lane, st_np, np.zeros(B, np.int32),
+                                subsmall)), **kw)
+    prev = first[1] - shift
+    args = (*seqs, *lane, first[0], prev, subsmall)
+    got = ydrop_mega(*(_on(dev, a) for a in args), with_tb=with_tb, **kw)
+    want = tx.ydrop_mega_plain(*(_on(cpu, a) for a in args),
+                               with_tb=with_tb, **kw)
+    _assert_equal(got, want, MEGA_NAMES, f"shift {shift}")
+    assert bool((want[2][12] == 1).all())
 
 
 @pytest.mark.cuda

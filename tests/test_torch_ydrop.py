@@ -305,3 +305,60 @@ def test_walk_matches_jax_on_synthetic_blocks(cap):
         assert (col < 0).any()
         ops3 = got[0][3].numpy()
         assert row[3] == 0 and (ops3[n[3] - 5: n[3]] == tx.OP_I).all()
+
+
+# (name, _mega_inputs keywords): MIXED_ANCHORS' lanes in 64-row chunks,
+# and lanes at the main path's y-drop (9400) whose bands grow past K1's
+# narrow tile (160 columns) over several of its 288-column tiles
+CENSUS_CASES = {
+    "mixed": dict(anchors=MIXED_ANCHORS),
+    "wide": dict(seed=5, n=3000, Bh=2, W=1536, y_drop=9400, rows=128,
+                 max_blocks=2),
+}
+
+
+@pytest.mark.parametrize("case", list(CENSUS_CASES))
+def test_band_census_matches_a_row_by_row_count(case):
+    """band_census over the widths that ydrop_mega_plain records row by
+    row (bands=) equals a direct count: ydrop_mega_lanes_plain stepped
+    one row a call from the same state, RY - LY read before each row
+    that ran.  Each lane's recorded rows are the first rows of the
+    stepped run, as many as lane_rows reads from the launch's outputs,
+    and a lane that finished in the launch ran no more."""
+    seqs, lane, st_np, subsmall, kw = _mega_inputs(**CENSUS_CASES[case])
+    B = lane[0].shape[0]
+    seq_t = tuple(map(torch.from_numpy, seqs + lane))
+    state = {k: torch.from_numpy(v) for k, v in st_np.items()}
+    sub = torch.from_numpy(subsmall)
+    bands = []
+    out = tx.ydrop_mega_plain(*seq_t, state, torch.zeros(B, dtype=torch.int32),
+                              sub, bands=bands, **kw)
+    widths = tx.lane_bands(bands)
+    rows = tx.lane_rows(out[2][12].numpy(), out[4].numpy(), out[5].numpy())
+    assert [len(w) for w in widths] == rows.tolist()
+    census = tx.band_census(widths)
+    assert census["lane_rows"] == rows.tolist()
+
+    one = dict(kw, rows=1, max_blocks=1)
+    st, prev = state, torch.zeros(B, dtype=torch.int32)
+    direct = [[] for _ in range(B)]
+    for _ in range(int(rows.max()) + 1):
+        got = tx.ydrop_mega_lanes_plain(*seq_t, st, prev, sub, **one)
+        for b in torch.nonzero(got[0]["row"] != st["row"])[:, 0].tolist():
+            direct[b].append(int(st["RY"][b]) - int(st["LY"][b]))
+        st, prev = got[0], got[1]
+    done = out[0]["done"].numpy()
+    for b in range(B):
+        assert direct[b][:rows[b]] == widths[b].tolist(), b
+        if done[b]:
+            assert len(direct[b]) == rows[b], b
+    want = tx.band_census([np.array(d[:r], np.int64)
+                           for d, r in zip(direct, rows)])
+    assert want == census
+    tiles = tx.row_tiles(np.concatenate(widths))
+    assert census["all"]["tiles_max"] == int(tiles.max())
+    assert census["all"]["rows"] == int(rows.sum())
+    if case == "wide":
+        assert census["all"]["tiles_max"] >= 2
+    else:
+        assert done.any() and not done.all()
