@@ -23,8 +23,9 @@ Phases, one line each (any failure exits nonzero):
                (one mega launch, and walk_inputs' synthetic blocks at
                WALK_EDGE_CAPS), K3 and K3b (band 512 x 1024 rows,
                4,096 anchors of the 4 Mbp pair below, forward and
-               reverse; K3's swept cells, the rows its early stop
-               leaves, beside the live and grid cells), and the chain
+               reverse; each one's swept cells, the rows its early stop
+               leaves, beside the live and grid cells, and K3b on its
+               input cut at those rows), and the chain
                walk on CHAIN_EDGES in both modes; times each wrapper call (K1's with the zeroed
                allocation of its link buffer) next to its plain version
                with CUDA events, and works out its bound from the
@@ -178,7 +179,8 @@ INDEX_BP = 64_000_000
 # 64 INT32 lanes on each of the 132 SMs at the 1980 MHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 CLOCK_HZ = 1.98e9
-INT32_OPS_PER_S = 132 * 64 * CLOCK_HZ
+SMS = 132
+INT32_OPS_PER_S = SMS * 64 * CLOCK_HZ
 # The floor of a serial walk (beside, not instead of, the roofline
 # bound): its longest lane's steps, each one dependent shared-memory
 # step of about 30 cycles.
@@ -1126,6 +1128,15 @@ def anchor_batches(pair):
     return out
 
 
+def cut_codes(codes1, rows, fill=-1):
+    """codes1 (B, max_rows) with `fill` from each anchor's rows[b] on:
+    the input cut at an early stop's rows."""
+    import torch
+    keep = torch.arange(codes1.shape[1], device=codes1.device)[None, :] \
+        < rows.to(codes1.device)[:, None]
+    return torch.where(keep, codes1, fill).to(torch.int32).contiguous()
+
+
 def check_k3(dev, batches, name):
     """K3 (name "ydrop_wavefront") or K3b ("ydrop_band") against its
     plain version on both orientations; returns (max_abs_err, kernel
@@ -1172,6 +1183,15 @@ def check_k3(dev, batches, name):
                 # the rows K3's early stop leaves it, a full band each
                 rows = tp.ydrop_wavefront_rows(*args, **geo)
                 extra["swept_cells"] = int(rows.sum()) * geo["band"]
+            else:
+                # the rows K3b's early stop leaves it; past them codes1
+                # may hold anything: the kernel on the cut input agrees
+                rows = tp.ydrop_band_rows(*args, **geo)
+                extra["swept_cells"] = int(rows.sum()) * geo["band"]
+                cut = cut_codes(args[0], rows)
+                if max_abs_diff(fn(cut, *args[1:], **geo), got):
+                    raise AssertionError(f"{name}: the input cut at its "
+                                         f"stop rows changed the result")
             say("kernels", kernel=name, live_cells=cells, grid_cells=grid,
                 **extra)
             n_bytes = nbytes(*args, got)

@@ -3,15 +3,16 @@
 NVIDIA card.
 
     python3 kernel_bench.py [--kernel ydrop_chunk|xdrop_scan|ydrop_traceback
-                             |resolve_chains|ydrop_wavefront]
+                             |resolve_chains|ydrop_wavefront|ydrop_band]
                             --other NAME=SRC.cu [--other NAME=SRC.cu ...]
-                            [--prefilled NAME]
+                            [--prefilled NAME] [--cut]
     python3 kernel_bench.py --kernel ydrop_mega [--other NAME=SRC.cu ...]
     python3 kernel_bench.py --kernel ydrop_mega --census [--out FILE.json]
 
 --kernel (default ydrop_chunk, K1) names the kernel by its wrapper's
 counter name in chip_smoke.py: K1, K2 (x-drop scan), the traceback
-walk, the seed stage's chain walk or K3.  Each SRC.cu is another source of that kernel (for example the
+walk, the seed stage's chain walk, K3 or K3b.  Each SRC.cu is another
+source of that kernel (for example the
 parent commit's lastz_tpu_torch/csrc/<source>.cu), built with nvcc with
 its C entry point renamed (-D<entry>=<entry>_<NAME>) into its own
 library.  A source whose entry point takes fewer arguments than the
@@ -26,14 +27,27 @@ reversed) on the same inputs:
            but K2, whose scratch counters must arrive zeroed): K1 the first
            chunk of each K1_TIMED case, K2 k2_setup's 2M hits, the walk
            walk_setup's mega launch, the chain walk the first launch of
-           the 4 Mbp main path and of its --recoverseeds run, K3
-           K3_SHAPE in both orientations; every build's outputs must
+           the 4 Mbp main path and of its --recoverseeds run, K3 and
+           K3b K3_SHAPE in both orientations; every build's outputs must
            equal the package's
   main     the 4 Mbp default run of chip_smoke.py phase 3 (for the chain
            walk also with --recoverseeds) with a CUDA event pair around
            every launch of the kernel; the builds' LAV must be equal.
-           K3 is off the CLI and has none, and so has K1's chunk entry
-           since the main path runs K1 through its mega launch
+           K3 and K3b are off the CLI and have none, and so has K1's
+           chunk entry since the main path runs K1 through its mega
+           launch
+
+--kernel ydrop_band --cut splits a K3b build's time between the rows
+its early stop needs and the rest: each orientation also runs on its
+input cut at ydrop_pallas.ydrop_band_rows (codes1 CUT, off the grid as
+-1 is, from the rows the stop needs on), whose result must equal the
+full input's, and each --other NAME=SRC.cu whose row loop loads its
+code as `const int a = c1[row];` (K3b before its redesign, which has
+no early stop) gets a second build, NAME_cut, whose row loop ends at
+the first CUT row (a break after that load, in a copy of SRC: its
+sweep cut to those rows).  Each K3b case prints the anchor rows of the grid and
+of the stop, and each build's SM cycles a row under both counts (the
+kernel alone's ms x 1.98 GHz x 132 SMs over the rows).
 
 K2's cases include its wide instantiation (K2_WIDE's alphabets), which
 only the package's build has: those cases time the package alone.
@@ -224,6 +238,64 @@ def k3_cases(dev):
     return out
 
 
+# codes1 past the stop rows in a K3b case's cut twin (--cut)
+CUT = -2
+
+
+def k3b_cases(dev, cut=False):
+    """K3b at chip_smoke.K3_SHAPE, both orientations, and with cut each
+    one's input cut at ydrop_band_rows (the kernel's result on it must
+    equal the full input's).  Each case carries its anchor rows: the
+    grid's and the stop's."""
+    import torch
+    from lastz_tpu_torch.ops import ydrop_pallas as tp
+    geo = dict(band=cs.K3_SHAPE["band"], max_rows=cs.K3_SHAPE["max_rows"])
+    out = []
+    for rev, batch in cs.anchor_batches(cs.make_pair()).items():
+        args = [torch.from_numpy(a).to(dev) for a in batch]
+        _, span = tp.ydrop_band_plain(*args, **geo, live_span=True)
+        rows = tp.ydrop_band_rows(*args, **geo)
+        n_rows = dict(grid=args[0].shape[0] * geo["max_rows"],
+                      stop=int(rows.sum()))
+        case = "reversed" if rev else "forward"
+        inputs = [(case, args)]
+        if cut:
+            inputs.append((case + "_cut",
+                           [cs.cut_codes(args[0], rows, CUT), *args[1:]]))
+        full = None
+        for name, a in inputs:
+            def run(a=a):
+                return [tp.ydrop_band_batch(*a, **geo)]
+
+            got = run()[0]
+            full = got if full is None else full
+            if not torch.equal(got, full):
+                raise AssertionError(f"K3b on {name} differs from the "
+                                     f"full input's result")
+            out.append((name, run, 3, cs.nbytes(*a, got), int(span.sum()),
+                        None, dict(rows=n_rows,
+                                   swept_cells=n_rows["stop"] * geo["band"])))
+    return out
+
+
+def cut_variants(others, tdir):
+    """[(NAME_cut, path)]: for each K3b source among others whose row
+    loop loads its code as `const int a = c1[row];` (one without an early
+    stop), a copy whose row loop ends at the first CUT row."""
+    load = "const int a = c1[row];"
+    out = []
+    for name, src in others:
+        with open(src) as f:
+            text = f.read()
+        if text.count(load) != 1:
+            continue
+        path = os.path.join(tdir, f"{name}_cut.cu")
+        with open(path, "w") as f:
+            f.write(text.replace(load, f"{load} if (a == {CUT}) break;"))
+        out.append((f"{name}_cut", path))
+    return out
+
+
 # kernels whose C call cannot be replayed as it was made: K2's counters
 # must arrive zeroed, and a replay would run its queue past its end
 NO_REPLAY = {"xdrop_scan"}
@@ -234,7 +306,8 @@ KERNELS = {"ydrop_chunk": ("ydrop_chunk_launch", k1_cases, None),
            "ydrop_traceback": ("ydrop_traceback_launch", walk_cases, [[]]),
            "resolve_chains": ("resolve_chains_launch", chain_cases,
                               [[], ["--recoverseeds"]]),
-           "ydrop_wavefront": ("ydrop_wavefront_launch", k3_cases, None)}
+           "ydrop_wavefront": ("ydrop_wavefront_launch", k3_cases, None),
+           "ydrop_band": ("ydrop_band_launch", k3b_cases, None)}
 
 
 def prefilled(fn):
@@ -258,19 +331,22 @@ def prefilled(fn):
     return call
 
 
-def time_cases(kernel, builds, order, card):
+def time_cases(kernel, builds, order, card, cut=False):
     """Each case of the kernel, every build in turns; a case with a C
     entry point of its own times the package's build alone."""
     import torch
     from lastz_tpu_torch.kernels import build
     own_entry, cases, _ = KERNELS[kernel]
+    opts = dict(cut=True) if cut else {}
     all_builds, all_order = builds, order
-    for name, run, reps, n_bytes, cells, *case_entry in cases(
-            torch.device("cuda")):
+    for name, run, reps, n_bytes, cells, *more in cases(
+            torch.device("cuda"), **opts):
+        case_entry = more[0] if more else None
+        extra = more[1] if len(more) > 1 else {}
         entry = own_entry
         builds, order = all_builds, all_order
-        if case_entry and case_entry[0]:
-            entry = case_entry[0]
+        if case_entry:
+            entry = case_entry
             builds = {"package": getattr(build.load(), entry)}
             order = ["package", "package"]
         bound_ms, bound_by = cs.bound(kernel, n_bytes, cells)
@@ -289,9 +365,15 @@ def time_cases(kernel, builds, order, card):
                 times[bname].append(cs.cuda_ms(run, reps))
             if kernel not in NO_REPLAY:
                 alone[bname].append(replay(entry, builds[bname], run))
+        if "rows" in extra:
+            extra["sm_cycles_per_row"] = {
+                count: {b: [1e-3 * ms * cs.CLOCK_HZ * cs.SMS / n
+                            for ms in v] for b, v in alone.items()}
+                for count, n in extra["rows"].items()}
         cs.say("kernel_bench", kernel=kernel, case=name, cells=cells,
                bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
-               order=order, ms=times, kernel_alone_ms=alone, card=card)
+               order=order, ms=times, kernel_alone_ms=alone, **extra,
+               card=card)
 
 
 def replay(entry, fn, run):
@@ -660,6 +742,10 @@ def main(argv=None):
                     "mega calls (profile build)")
     ap.add_argument("--out", help="with --census: a JSON file for the "
                     "census's per-call table")
+    ap.add_argument("--cut", action="store_true",
+                    help="with --kernel ydrop_band: also the inputs cut at "
+                    "the stop rows, and a NAME_cut build of each --other "
+                    "that ends its sweep there")
     ap.add_argument("--prefilled", action="append", default=[],
                     help="NAME of an --other chain walk that needs its "
                     "outputs filled first (a source whose wrapper filled "
@@ -683,10 +769,14 @@ def main(argv=None):
         return 0
     if not args.other:
         ap.error("--other is required")
+    if args.cut and args.kernel != "ydrop_band":
+        ap.error("--cut needs --kernel ydrop_band")
     entry, _, main_runs = KERNELS[args.kernel]
     others = [tuple(spec.split("=", 1)) for spec in args.other]
     with tempfile.TemporaryDirectory() as tdir:
         t0 = time.monotonic()
+        if args.cut:
+            others += cut_variants(others, tdir)
         builds = build_others(entry, others, tdir)
         for name in args.prefilled:
             builds[name] = prefilled(builds[name])
@@ -695,7 +785,7 @@ def main(argv=None):
                build_s=time.monotonic() - t0)
         order = [n for n, _ in others] + ["package", "package"] + [
             n for n, _ in reversed(others)]
-        time_cases(args.kernel, builds, order, card)
+        time_cases(args.kernel, builds, order, card, args.cut)
         for opts in main_runs or ():
             time_main(args.kernel, builds, order, card, opts)
     return 0

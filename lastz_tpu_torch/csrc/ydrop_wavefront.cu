@@ -60,14 +60,70 @@
 // ops/ydrop_pallas.ydrop_wavefront_rows computes where the test first
 // holds, in plain PyTorch.
 //
-// K3b (ydrop_band_kernel, unchanged since its port): one CTA per
-// anchor, one thread per DP column; it sweeps rows, the insertion state
-// is the decayed exclusive prefix max of the row (a warp
-// __shfl_up_sync scan plus a shared scan of the warp totals), and the
-// previous row's C reaches column c+1 through shared memory (three
-// __syncthreads() per row), over the whole grid.  It ends with three
-// block max reductions that apply the kernels' tie rule (latest row at
-// the maximum, then the largest column).
+// K3b (ydrop_band_kernel<S>): the row sweep, one warp per anchor,
+// K3_WARPS anchors a CTA, no block barrier.  Lane j owns DP columns j S
+// .. j S + S - 1 (column 0, the boundary, is lane 0's first) and keeps
+// each one's C of the row above, D and running best in registers (the
+// row of each best in shared memory, written only when the best moves).
+// A row: the diagonal input of the strip's first column is lane j - 1's
+// last C of the row above (__shfl_up_sync; NEG at lane 0, the pad of
+// column 0); the insertion state I, the decayed exclusive prefix max of
+// g = t - gap_oe + c gap_e with NEG inside the max, is a serial running
+// max along the strip, a five-step __shfl_up_sync max-scan of the strip
+// totals, and each column's exclusive max resolved against its lane's
+// prefix.  Codes come 32 rows at a time, one coalesced load a warp (the
+// next group's issued a group ahead), each row's broadcast with
+// __shfl_sync; the substitution score of a row is one shared-memory
+// load a column from a conflict-free table [plane][column][lane], five
+// planes: codes 0, 1, 2, anything else, and NEG_HALF for an off-grid
+// row (a table rather than 4 x S registers: the warp-uniform code picks
+// a plane by address, with no select a column, and the registers stay
+// for the strip's state).  The argmax ends in warp reductions with the
+// kernels' tie rule (latest row at the maximum, then the largest
+// column).  S is a template parameter (1 to 32).
+//
+// K3b's early stop.  Let thr(c) = best(c) - y_drop, best(c) >= 0 the
+// column's running best, and C*(r, c) a cell's value before the prune
+// (C(r, c) after it: C* where kept, NEG where pruned).  The sweep tests
+// rows 31, 63, ... (the last row of each group of codes) and ends after
+// the first tested row r for which
+//   (a) the prune removed every cell of row r (C(r, c) = NEG for every
+//       column; column 0 and invalid columns always are), and
+//   (b) the parameters keep every sum from int32 wrap (band_can_stop:
+//       K3's guard, and max_rows x max(sub4) < 2^28, so that every
+//       score stays below 2^28).
+// Then every cell of every later row is pruned, for any codes1, so no
+// best and no row of a best moves (no tie either: a pruned cell is NEG,
+// below every best).  Row r + 1 from row r, then induction; for a valid
+// column c, C*(r + 1, c) = max(t, I) with
+//   - the diagonal input C(r, c - 1) + s = NEG + s, s at most 2^16 (or
+//     NEG_HALF), below -2^28 <= thr(c);
+//   - D(r + 1, c) = max(D(r, c) - gap_e, NEG - gap_oe), and D(r, c) <=
+//     t(r, c) <= C*(r, c) < thr(c);
+//   - I(r + 1, c), the max over k < c of t(r + 1, k) - gap_oe - (c - 1 -
+//     k) gap_e and of the scan's NEG pad.  t(r + 1, k) is a NEG-based
+//     diagonal input or D(r + 1, k) <= max(D(r, k) - gap_e, NEG -
+//     gap_oe); the NEG terms stay below thr(c), and D(r, k) - gap_e -
+//     gap_oe - (c - 1 - k) gap_e <= t(r, k) - gap_oe - (c - 1 - k) gap_e
+//     - gap_e <= I(r, c) - gap_e <= C*(r, c) - gap_e < thr(c), since row
+//     r's I(r, c) took the same max over the same columns.
+// So C*(r + 1, c) < thr(c): row r + 1 is pruned whole, with the same
+// thresholds, and so is every row after it.  Unlike K3's, the test needs
+// neither an on-grid row nor a dead column-0 boundary: D at column 0,
+// at invalid columns and on off-grid rows is never masked, but what it
+// could add to a later row through I it had already added to row r's I,
+// one gap_e more, so C*(r, c) bounds it (and while it can reach a
+// column's threshold, that column survives and (a) fails).  Nor is the
+// last on-grid row an end: the rows past it still carry gaps and can
+// move a best (at zero gap costs they do).  Without (b) the sweep runs
+// every row.  (b) keeps each value above within int32: C <= max_rows x
+// max(sub4) < 2^28, C >= NEG, D >= NEG - gap_oe, thr >= -2^28, and
+// NEG + NEG_HALF and NEG - gap_oe - band gap_e stay above -2^31.  The
+// test costs no operation a cell: it reads row r's C from the strip's
+// registers once every 32 rows, and sweeps at most 31 rows past the
+// first row where (a) holds (once (a) holds, it holds on every later
+// row).  ops/ydrop_pallas.ydrop_band_rows counts the rows the kernel
+// sweeps, in plain PyTorch.
 
 #include <climits>
 
@@ -84,56 +140,23 @@ constexpr int NEG = -(1 << 30);      // NEG_INF_I32
 constexpr int NEG_HALF = -(1 << 29);  // NEG_INF_I32 // 2
 constexpr int K3_WARPS = 8;           // K3: anchors (warps) per CTA
 
-// Max of v over the block, returned to every thread.  s_red holds one
-// slot per warp and may be reused by the next call.
-__device__ __forceinline__ int block_max(int v, int* s_red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarp = blockDim.x >> 5;
-  v = __reduce_max_sync(kFullMask, v);
-  __syncthreads();  // every read of s_red by an earlier call is done
-  if (lane == 0) s_red[warp] = v;
-  __syncthreads();
-  int m = s_red[0];
-  for (int w = 1; w < nwarp; ++w) m = max(m, s_red[w]);
-  return m;
-}
-
-// Exclusive prefix max over the block's threads, seeded with `ident`.
-__device__ __forceinline__ int block_excl_max(int v, int ident, int* sw) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarp = blockDim.x >> 5;
-  int x = v;
+// K3's stop guard: no sum of the recurrence can wrap, whatever the
+// scores of max_rows rows add up to (see stop_ok)
+__device__ __forceinline__ bool gaps_stay_small(const int* sub4, int gap_e,
+                                                int gap_oe, int y_drop,
+                                                int band, int max_rows,
+                                                int* smax_out) {
+  int smax = sub4[0], smin = sub4[0];
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFullMask, x, o);
-    if (lane >= o) x = max(x, y);
+  for (int i = 1; i < 16; ++i) {
+    smax = max(smax, sub4[i]);
+    smin = min(smin, sub4[i]);
   }
-  if (lane == 31) sw[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nwarp ? sw[lane] : ident;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFullMask, w, o);
-      if (lane >= o) w = max(w, y);
-    }
-    if (lane < nwarp) sw[lane] = w;
-  }
-  __syncthreads();
-  int ex = __shfl_up_sync(kFullMask, x, 1);
-  if (lane == 0) ex = ident;
-  const int pre = warp ? sw[warp - 1] : ident;
-  return max(pre, ex);
-}
-
-// The substitution score of vertical code a against this column's
-// plane: codes 0, 1, 2 pick their own row of the table, anything else
-// row 3 (the kernels' nested selects).
-__device__ __forceinline__ int pick(const int plane[4], int a) {
-  return a == 0 ? plane[0] : a == 1 ? plane[1] : a == 2 ? plane[2]
-                                                        : plane[3];
+  *smax_out = smax;
+  return gap_e >= 0 && gap_oe >= 0 && y_drop >= 0 && y_drop < (1 << 28) &&
+         smax <= (1 << 16) && smin >= -(1 << 16) &&
+         (long long)gap_oe + (long long)(max_rows + band) * gap_e <
+             (1 << 28);
 }
 
 // C(r, 0): 0 at r == 0, else the vertical-gap boundary, y-drop masked
@@ -141,12 +164,6 @@ __device__ __forceinline__ int vcol0(int r, int gap_e, int gap_oe,
                                      int neg_y) {
   const int v = r == 0 ? 0 : wsub(wsub(0, gap_oe), wmul(r - 1, gap_e));
   return (v >= neg_y && r >= 0) ? v : NEG;
-}
-
-__device__ __forceinline__ void write_out(int* out, int best, int row,
-                                          int col) {
-  for (int i = threadIdx.x; i < 128; i += blockDim.x)
-    out[i] = i == 0 ? best : i == 1 ? row : i == 2 ? col : 0;
 }
 
 // C(-1, l) = C(DP row 0, column l + 1): the row-0 boundary, y-drop masked
@@ -182,17 +199,10 @@ __global__ void __launch_bounds__(K3_WARPS * 32)
   const int neg_y = wsub(0, y_drop);
   const int* c1 = codes1 + b * max_rows;
   const int* c2 = codes2 + b * band;
-  int smax = sub4[0], smin = sub4[0];
-#pragma unroll
-  for (int i = 1; i < 16; ++i) {
-    smax = max(smax, sub4[i]);
-    smin = min(smin, sub4[i]);
-  }
   // the early stop's proof needs sums that never wrap (see stop_ok)
-  const bool can_stop =
-      gap_e >= 0 && gap_oe >= 0 && y_drop >= 0 && y_drop < (1 << 28) &&
-      smax <= (1 << 16) && smin >= -(1 << 16) &&
-      (long long)gap_oe + (long long)(max_rows + band) * gap_e < (1 << 28);
+  int smax;
+  const bool can_stop = gaps_stay_small(sub4, gap_e, gap_oe, y_drop, band,
+                                        max_rows, &smax);
 
   // rows past the last on-grid one compute NEG and change no best
   int last = -1;
@@ -321,71 +331,141 @@ __global__ void __launch_bounds__(K3_WARPS * 32)
   reinterpret_cast<int4*>(out + b * 128)[lane] = v;
 }
 
-__global__ void ydrop_band_kernel(const int* __restrict__ codes1,
-                                  const int* __restrict__ codes2,
-                                  const int* __restrict__ sub4,
-                                  const int* __restrict__ params,
-                                  int* __restrict__ out, int band,
-                                  int max_rows) {
-  extern __shared__ int s_c[];  // the previous row's C
-  __shared__ int s_scan[32];
-  __shared__ int s_red[32];
+// K3b at strip width S (band = 32 S): one warp per anchor, lane j owns
+// DP columns j S .. j S + S - 1 and sweeps the rows over them.  Up to
+// S = 16 two CTAs share an SM (at most 128 registers a thread).
+template <int S>
+__global__ void __launch_bounds__(K3_WARPS * 32, S <= 16 ? 2 : 1)
+    ydrop_band_kernel(const int* __restrict__ codes1,
+                      const int* __restrict__ codes2,
+                      const int* __restrict__ sub4,
+                      const int* __restrict__ params,
+                      int* __restrict__ out, int B, int max_rows) {
+  constexpr int band = 32 * S;
+  extern __shared__ int s_dyn[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long b = (long long)blockIdx.x * K3_WARPS + warp;
+  if (b >= B) return;
+  // this warp's substitution planes [5][S][32] (codes 0, 1, 2, the rest,
+  // an off-grid row) and rows of best [S][32]: a lane touches only its
+  // own slots, so no barrier is needed
+  int* s_plane = s_dyn + warp * 6 * band;
+  int* s_rob = s_plane + 5 * band;
 
-  const long long b = blockIdx.x;
-  const int c = threadIdx.x;
+  // only row 0 of params is read: the gaps and the y-drop are uniform
   const int gap_e = params[0], gap_oe = params[1], y_drop = params[2];
   const int neg_y = wsub(0, y_drop);
   const int* c1 = codes1 + b * max_rows;
+  const int* c2 = codes2 + b * band;
+  // the early stop's proof needs sums that never wrap, scores included
+  int smax;
+  const bool can_stop =
+      gaps_stay_small(sub4, gap_e, gap_oe, y_drop, band, max_rows, &smax) &&
+      (long long)max_rows * max(smax, 0) < (1 << 28);
 
-  // DP column c consumes codes2[c - 1]; column 0 is the boundary
-  const int code2 = c >= 1 ? codes2[b * band + c - 1] : -1;
-  const bool col_valid = c >= 1 && code2 >= 0;
-  const int bcode = min(max(code2, 0), 3);
-  int plane[4];
+  // column state: C of the row above (first the row-0 boundary c_first),
+  // D, the running best; g = t + goff[k] (goff = c gap_e - gap_oe), and
+  // I = max(NEG, max of g to the left) - c gap_e + gap_e, which is that
+  // max - goff[k] + (gap_e - gap_oe) in wrapping int32
+  const int ge_goe = wsub(gap_e, gap_oe);
+  int cprev[S], dprev[S], best[S], goff[S];
+  unsigned vmask = 0;
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-    plane[a] = col_valid ? sub4[a * 4 + bcode] : NEG_HALF;
-
-  int c_prev = c == 0 ? 0 : wsub(wsub(0, gap_oe), wmul(c - 1, gap_e));
-  c_prev = c_prev >= neg_y ? c_prev : NEG;
-  c_prev = (col_valid || c == 0) ? c_prev : NEG;
-  int d_prev = NEG;
-  const int decay = wmul(c, gap_e);
-  int best = 0, row_of_best = 0;
-  s_c[c] = c_prev;
-  __syncthreads();
-
-  for (int row = 0; row < max_rows; ++row) {
-    const int a = c1[row];
-    const int s = a >= 0 ? pick(plane, a) : NEG_HALF;
-    const int c_shift = c == 0 ? NEG : s_c[c - 1];
-    const int d_cur = max(wsub(d_prev, gap_e), wsub(c_prev, gap_oe));
-    const int t = max(wadd(c_shift, s), d_cur);
-    // I(c) = max over k < c of (t(k) - gapOE + k gapE) - c gapE + gapE,
-    // with NEG inside the max: the Hillis-Steele pad of the kernel
-    // reaches every column but the last of a power-of-two band
-    const int g = wadd(wsub(t, gap_oe), decay);
-    const int g_shift = block_excl_max(g, NEG, s_scan);
-    const int i_cur = wadd(wsub(g_shift, decay), gap_e);
-    int c_cur = max(t, i_cur);
-    if (!(c_cur >= wsub(best, y_drop))) c_cur = NEG;
-    if (!col_valid) c_cur = NEG;
-    if (c_cur >= best) {
-      best = c_cur;
-      row_of_best = row;
-    }
-    c_prev = c_cur;
-    d_prev = d_cur;
-    // every read of s_c for this row precedes the barriers in the scan
-    s_c[c] = c_cur;
-    __syncthreads();
+  for (int k = 0; k < S; ++k) {
+    const int c = lane * S + k;
+    const int code2 = c >= 1 ? __ldg(c2 + c - 1) : -1;
+    const bool valid = c >= 1 && code2 >= 0;
+    vmask |= (unsigned)valid << k;
+    const int bcode = min(max(code2, 0), 3);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      s_plane[(a * S + k) * 32 + lane] =
+          valid ? __ldg(sub4 + a * 4 + bcode) : NEG_HALF;
+    s_plane[(4 * S + k) * 32 + lane] = NEG_HALF;
+    int v = c == 0 ? 0 : wsub(wsub(0, gap_oe), wmul(c - 1, gap_e));
+    v = v >= neg_y ? v : NEG;
+    cprev[k] = (valid || c == 0) ? v : NEG;
+    dprev[k] = NEG;
+    best[k] = 0;
+    s_rob[k * 32 + lane] = 0;
+    goff[k] = wsub(wmul(c, gap_e), gap_oe);
   }
 
-  const int top = block_max(best, s_red);
-  const int end_row = block_max(best == top ? row_of_best : -1, s_red);
-  const int end_col = block_max(
-      (best == top && row_of_best == end_row) ? c : -1, s_red);
-  write_out(out + b * 128, top, max(end_row, 0), max(end_col, 0));
+  int next = lane < max_rows ? __ldg(c1 + lane) : -1;
+  for (int r0 = 0; r0 < max_rows; r0 += 32) {
+    const int grp = next;  // codes of rows r0 .. r0 + 31, one a lane
+    next = r0 + 32 + lane < max_rows ? __ldg(c1 + r0 + 32 + lane) : -1;
+    const int n = min(32, max_rows - r0);
+    for (int i = 0; i < n; ++i) {
+      const int r = r0 + i;
+      const int a = __shfl_sync(kFullMask, grp, i);
+      const int* pl = s_plane + (a < 0 ? 4 : a < 3 ? a : 3) * S * 32 + lane;
+      // C(r - 1, j S - 1): lane j - 1's last column; column 0's pad NEG
+      int cin = __shfl_up_sync(kFullMask, cprev[S - 1], 1);
+      if (lane == 0) cin = NEG;
+      // D and t, and g's running max along the strip (ex: to the left)
+      int t[S], ex[S];
+      int run = NEG;
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        const int diag = k ? cprev[k - 1] : cin;
+        const int d = max(wsub(dprev[k], gap_e), wsub(cprev[k], gap_oe));
+        t[k] = max(wadd(diag, pl[k * 32]), d);
+        dprev[k] = d;
+        ex[k] = run;
+        run = max(run, wadd(t[k], goff[k]));
+      }
+      // the strips' totals: inclusive max-scan over the lanes, identity
+      // NEG, shifted in as each lane's exclusive prefix
+      int x = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFullMask, x, o);
+        if (lane >= o) x = max(x, y);
+      }
+      int pre = __shfl_up_sync(kFullMask, x, 1);
+      if (lane == 0) pre = NEG;
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        int c = max(t[k], wadd(wsub(max(pre, ex[k]), goff[k]), ge_goe));
+        const bool keep = ((vmask >> k) & 1u) && c >= wsub(best[k], y_drop);
+        c = keep ? c : NEG;
+        if (c >= best[k]) {
+          best[k] = c;
+          s_rob[k * 32 + lane] = r;
+        }
+        cprev[k] = c;
+      }
+    }
+    // the stop test on the group's last row (r0 + 31): every cell pruned
+    if (can_stop && n == 32) {
+      int m = cprev[0];
+#pragma unroll
+      for (int k = 1; k < S; ++k) m = max(m, cprev[k]);
+      if (!__any_sync(kFullMask, m != NEG)) break;
+    }
+  }
+
+  // latest row at the maximum, then the largest column
+  int m = best[0];
+#pragma unroll
+  for (int k = 1; k < S; ++k) m = max(m, best[k]);
+  const int top = __reduce_max_sync(kFullMask, m);
+  int er = INT_MIN;  // a column not at the maximum puts in -1
+#pragma unroll
+  for (int k = 0; k < S; ++k)
+    er = max(er, best[k] == top ? s_rob[k * 32 + lane] : -1);
+  const int end_row = __reduce_max_sync(kFullMask, er);
+  int ec = -1;
+#pragma unroll
+  for (int k = 0; k < S; ++k)
+    if (best[k] == top && s_rob[k * 32 + lane] == end_row) ec = lane * S + k;
+  const int end_col = __reduce_max_sync(kFullMask, ec);
+  const int4 v = lane == 0 ? make_int4(top, max(end_row, 0),
+                                       max(end_col, 0), 0)
+                           : make_int4(0, 0, 0, 0);
+  reinterpret_cast<int4*>(out + b * 128)[lane] = v;
 }
 
 template <int S>
@@ -402,17 +482,37 @@ int launch_wavefront(const int* codes1, const int* codes2, const int* sub4,
   return (int)cudaGetLastError();
 }
 
-using WavefrontLaunch = int (*)(const int*, const int*, const int*,
-                                const int*, int*, int, int, cudaStream_t);
+template <int S>
+int launch_band(const int* codes1, const int* codes2, const int* sub4,
+                const int* params, int* out, int B, int max_rows,
+                cudaStream_t stream) {
+  const int shm = K3_WARPS * 6 * 32 * S * (int)sizeof(int);
+  if (shm > 48 * 1024)
+    cudaFuncSetAttribute(ydrop_band_kernel<S>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, shm);
+  ydrop_band_kernel<S>
+      <<<(B + K3_WARPS - 1) / K3_WARPS, K3_WARPS * 32, shm, stream>>>(
+          codes1, codes2, sub4, params, out, B, max_rows);
+  return (int)cudaGetLastError();
+}
+
+using Launch = int (*)(const int*, const int*, const int*, const int*, int*,
+                       int, int, cudaStream_t);
 
 // one instantiation for every strip width the contract allows, 1 to 32
 template <int... I>
-constexpr std::array<WavefrontLaunch, sizeof...(I)> wavefront_table(
+constexpr std::array<Launch, sizeof...(I)> wavefront_table(
     std::integer_sequence<int, I...>) {
   return {&launch_wavefront<I + 1>...};
 }
+template <int... I>
+constexpr std::array<Launch, sizeof...(I)> band_table(
+    std::integer_sequence<int, I...>) {
+  return {&launch_band<I + 1>...};
+}
 constexpr auto kWavefront =
     wavefront_table(std::make_integer_sequence<int, 32>{});
+constexpr auto kBand = band_table(std::make_integer_sequence<int, 32>{});
 
 }  // namespace
 
@@ -437,8 +537,6 @@ extern "C" int ydrop_band_launch(const int* codes1, const int* codes2,
                                  void* stream) {
   if (band % 32 != 0 || band < 32 || band > 1024 || max_rows < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t shm = (size_t)band * sizeof(int);
-  ydrop_band_kernel<<<B, band, shm, (cudaStream_t)stream>>>(
-      codes1, codes2, sub4, params, out, band, max_rows);
-  return (int)cudaGetLastError();
+  return kBand[band / 32 - 1](codes1, codes2, sub4, params, out, B,
+                              max_rows, (cudaStream_t)stream);
 }

@@ -17,7 +17,8 @@ path calls it; it is the throughput study of the recurrence.
                           _ydrop_band_kernel (:38), which no pallas_call
                           reaches.  Row sweep with the insertion state
                           as a decayed prefix max; plain version
-                          ydrop_band_plain
+                          ydrop_band_plain; the kernel's early stop in
+                          plain PyTorch: ydrop_band_rows
   ydrop_extend_batch_xla  plain PyTorch only: the row sweep with the
                           prune against the anchor's single running
                           best (:344).  It agrees with K3/K3b only
@@ -245,6 +246,53 @@ def ydrop_band_plain(codes1, codes2, sub4, params, band: int = 512,
     """K3b's function in plain PyTorch: one DP row per step, pruned
     against each column's own running best.  With live_span, returns
     (out, (B,) int64 live-span cells)."""
+    out, lo, hi, _ = _band(codes1, codes2, sub4, params, band, max_rows,
+                           live_span)
+    return (out, _span(lo.long(), hi.long())) if live_span else out
+
+
+# K3b tests its early stop once every STOP_EVERY rows, on the last row of
+# each group of codes it loads
+STOP_EVERY = 32
+
+
+def _band_can_stop(sub4, params, band, max_rows):
+    """K3's guard, and the scores of max_rows rows kept below 2^28: then
+    no sum of K3b's recurrence wraps (csrc/ydrop_wavefront.cu,
+    band_can_stop)."""
+    smax = max(int(v) for v in sub4.reshape(-1))
+    return (_can_stop(sub4, params, band, max_rows)
+            and max_rows * max(smax, 0) < 1 << 28)
+
+
+def ydrop_band_rows(codes1, codes2, sub4, params, band: int = 512,
+                    max_rows: int = 1024):
+    """K3b's early stop in plain PyTorch: (B,) int64, the rows of each
+    anchor the kernel sweeps.  It tests rows STOP_EVERY - 1, 2 STOP_EVERY
+    - 1, ... and ends after the first one in which the prune removed
+    every cell, whether the row is on the grid or not; without such a
+    row, or where the parameters let a sum wrap, it sweeps all max_rows
+    (rows past the last on-grid one can still move a best).  The proof
+    that no row after the stop changes the result, for any codes1, is at
+    the top of csrc/ydrop_wavefront.cu."""
+    B = codes1.shape[0]
+    full = torch.full((B,), max_rows, dtype=torch.int64,
+                      device=codes1.device)
+    if not _band_can_stop(sub4, params, band, max_rows):
+        return full
+    _, _, _, kept = _band(codes1, codes2, sub4, params, band, max_rows,
+                          True)
+    r_ix = torch.arange(max_rows, device=codes1.device)
+    tested = (r_ix % STOP_EVERY == STOP_EVERY - 1)[None, :]
+    first = torch.where(tested & ~kept, r_ix, max_rows).min(dim=1).values
+    return torch.minimum(full, first + 1)
+
+
+def _band(codes1, codes2, sub4, params, band, max_rows, track):
+    """The row sweep of ydrop_band_plain; with track, also each row's
+    first and last on-grid column that survives the prune (lo band and
+    hi -1 where none does) and whether any cell of the row survives it
+    (kept, (B, max_rows) bool, on the grid or not)."""
     c1 = codes1.to(_I32)
     c2 = codes2.to(_I32)
     B = c1.shape[0]
@@ -259,6 +307,7 @@ def ydrop_band_plain(codes1, codes2, sub4, params, band: int = 512,
     row_of_best = torch.zeros((B, band), dtype=_I32, device=dev)
     lo = torch.full((B, max_rows), band, dtype=_I32, device=dev)
     hi = torch.full((B, max_rows), -1, dtype=_I32, device=dev)
+    kept = torch.zeros((B, max_rows), dtype=torch.bool, device=dev)
     for row in range(max_rows):
         a = c1[:, row: row + 1]
         s = torch.where(a >= 0, _pick(planes, a), NEG_INF_I32 // 2)
@@ -266,10 +315,11 @@ def ydrop_band_plain(codes1, codes2, sub4, params, band: int = 512,
         t = torch.maximum(_shift_in(c_prev, neg1) + s, d_cur)
         c_cur = torch.maximum(t, _insertions(t, gap_oe, gap_e, decay))
         keep = (c_cur >= best - y_drop) & col_valid
-        if live_span:
+        if track:
             live = keep & (a >= 0)
             lo[:, row] = torch.where(live, col_ix, band).amin(dim=1)
             hi[:, row] = torch.where(live, col_ix, -1).amax(dim=1)
+            kept[:, row] = keep.any(dim=1)
         c_cur = torch.where(keep, c_cur, NEG_INF_I32)
         improved = c_cur >= best
         best = torch.where(improved, c_cur, best)
@@ -284,7 +334,7 @@ def ydrop_band_plain(codes1, codes2, sub4, params, band: int = 512,
                           -1).max(dim=1).values
     out = _out(top[:, 0], torch.clamp(end_row[:, 0], min=0),
                torch.clamp(end_col, min=0))
-    return (out, _span(lo.long(), hi.long())) if live_span else out
+    return out, lo, hi, kept
 
 
 def ydrop_extend_batch_xla(codes1, codes2, sub4, params, band: int = 512,

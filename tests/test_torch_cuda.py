@@ -23,7 +23,7 @@ from lastz_tpu_torch.ops.ydrop_cuda import (traceback_mega, ydrop_chunk,
 
 from chip_smoke import (CHAIN_EDGES, WALK_EDGE_CAPS, WALK_EDGE_GEOMETRY,
                         XDROP_EDGES, chain_edge_inputs, chain_walk_args,
-                        walk_inputs, xdrop_edge_inputs)
+                        cut_codes, walk_inputs, xdrop_edge_inputs)
 from test_hitgen import _related_pair
 
 
@@ -522,6 +522,68 @@ def test_cuda_wavefront_and_band_match_plain(band, rows, y_drop):
         want = plain(*args, band=band, max_rows=rows)
         assert torch.equal(got, want), fn.__name__
         assert int(got[:, 0].max()) > 0
+
+
+def _band_inputs(band, rows, case, B=70):
+    """K3b's inputs for test_cuda_band_matches_plain: related code pairs
+    with ragged ends and -1 codes inside codes1 at the default gaps and a
+    y-drop of 300 ("pruning"), the same at gap_e 0 ("gap_e0"), or A
+    against A at zero gap costs, fewer rows than columns and codes2 cut
+    after column L_i > rows ("ties"): every cell of row r from column
+    r + 1 on scores 91 (r + 1), so columns rows .. L_i, across lanes,
+    share the best on the last row, and L_i wins the tie."""
+    rng = np.random.default_rng(band + rows)
+    sub4 = new_dna_score_set().dna4.astype(np.int32)
+    base = rng.integers(0, 4, (B, max(rows, band))).astype(np.int32)
+    C1 = base[:, :rows].copy()
+    C2 = base[:, :band].copy()
+    if case == "ties":
+        C1[:] = 0
+        C2[:] = 0
+        for i in range(B):
+            C2[i, int(rng.integers(rows + 1, band)):] = -1
+        gaps = (0, 0)
+    else:
+        mut = rng.random(C2.shape) < 0.15
+        C2[mut] = (C2[mut] + 1) % 4
+        for i in range(B):
+            C1[i, int(rng.integers(rows // 2, rows + 1)):] = -1
+            C2[i, int(rng.integers(band // 2, band)):] = -1
+        C1[5, 3: 3 + max(rows // 8, 1)] = -1  # off-grid rows inside
+        gaps = (0, 430) if case == "gap_e0" else (30, 430)
+    P = np.tile(np.array([*gaps, 300, band - 1], np.int32), (B, 1))
+    return C1, C2, sub4, P
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [32, 64, 96, 512, 1024])
+@pytest.mark.parametrize("case", ["pruning", "gap_e0", "ties"])
+def test_cuda_band_matches_plain(band, case):
+    """K3b against its plain version at every strip class (S = 1, 2, 3,
+    16 and 32 columns a lane), on a batch of 70 anchors (no multiple of
+    the kernel's 8 a CTA), one launch a call; and its early stop: the
+    kernel on codes1 cut to -1 past ydrop_band_rows gives the same
+    result as on the full codes1."""
+    dev = _card()
+    rows = band // 2 if case == "ties" else 300
+    C1, C2, sub4, P = _band_inputs(band, rows, case)
+    args = [torch.from_numpy(a).to(dev) for a in (C1, C2, sub4, P)]
+    geo = dict(band=band, max_rows=rows)
+    n0 = tp.ydrop_band_batch.launches
+    got = tp.ydrop_band_batch(*args, **geo)
+    torch.cuda.synchronize()
+    assert tp.ydrop_band_batch.launches == n0 + 1
+    want = tp.ydrop_band_plain(*args, **geo)
+    assert torch.equal(got, want)
+    if case == "ties":
+        assert (got[:, 0] == 91 * rows).all()
+        assert torch.equal(got[:, 2], (args[1] >= 0).sum(1).to(torch.int32))
+    stop = tp.ydrop_band_rows(*args, **geo)
+    if case == "pruning":
+        assert int((stop < rows).sum()) > 0
+    again = tp.ydrop_band_batch(cut_codes(args[0], stop), *args[1:], **geo)
+    assert tp.ydrop_band_batch.launches == n0 + 2
+    assert torch.equal(again, got)
 
 
 @pytest.mark.cuda

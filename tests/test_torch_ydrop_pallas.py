@@ -195,3 +195,69 @@ def test_wavefront_early_stop_changes_nothing(seed, ydrop):
         interpret=True)) for c in (C1, cut)]
     assert np.array_equal(got_j[0], got_j[1])
     assert np.array_equal(got_j[0], ref)
+
+
+# K3b's early stop: YDROPS at the default gaps, a column-0 boundary that
+# stays alive through every row (D at column 0 falls by 1 a row, and
+# column 1, which it reaches, never scores above 91, so -40 - r stays
+# above its prune threshold), and a y-drop too large for the wrap guard,
+# which then refuses the stop
+BAND_STOP_CASES = {"inactive": (GAP_E, GAP_OE, YDROPS["inactive"]),
+                   "pruning": (GAP_E, GAP_OE, YDROPS["pruning"]),
+                   "live_boundary": (1, 20, 1000),
+                   "no_guard": (GAP_E, GAP_OE, 1 << 28)}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", list(BAND_STOP_CASES))
+def test_band_early_stop_changes_nothing(seed, case):
+    """The invariant K3b's early stop relies on: past the rows that
+    ydrop_band_rows says the kernel sweeps, codes1 may hold anything
+    (here -1) and the result stays the same, for the plain K3b and for
+    _ydrop_band_kernel in an interpret-mode pallas_call.  Some anchors
+    hold -1 codes inside codes1 (off-grid rows, where D stays alive); a
+    stop is only ever tested on every 32nd row."""
+    C1, C2, sub4, P = _batch(seed, 0)
+    P[:, :3] = BAND_STOP_CASES[case]
+    C1[7, 20:26] = -1
+    C1[8, 3:40:3] = -1
+    args = [torch.from_numpy(a) for a in (C1, C2, sub4, P)]
+    rows = tp.ydrop_band_rows(*args, band=BAND, max_rows=ROWS).numpy()
+    assert (rows <= ROWS).all()
+    assert ((rows % tp.STOP_EVERY == 0) | (rows == ROWS)).all()
+    if case == "pruning":
+        assert (rows < ROWS).sum() > B // 4  # the stop saves rows
+    else:  # nothing is pruned, column 1 lives, or the guard refuses
+        assert (rows == ROWS).all()
+    cut = np.where(np.arange(ROWS)[None, :] < rows[:, None], C1, -1)
+    ref = _port(tp.ydrop_band_plain, C1, C2, sub4, P)
+    assert np.array_equal(_port(tp.ydrop_band_plain, cut, C2, sub4, P), ref)
+    got_j = [_jax_band(c, C2, sub4, P) for c in (C1, cut)]
+    assert np.array_equal(got_j[0], got_j[1])
+    assert np.array_equal(got_j[0], ref)
+
+
+@pytest.mark.parametrize("gaps", [(0, 0), (GAP_E, GAP_OE)])
+def test_band_rows_past_the_grid_are_swept(gaps):
+    """Why K3b, unlike K3, does not end at the last on-grid row: its
+    rows past codes1's end still carry gaps.  At zero gap costs those
+    rows keep every cell of an anchor alive and move its end row, so
+    the sweep cut at the last on-grid row differs and ydrop_band_rows
+    keeps every row; at the default gaps the same anchors stop."""
+    C1, C2, sub4, P = _batch(0, YDROPS["pruning"])
+    P[:, :2] = gaps
+    args = [torch.from_numpy(a) for a in (C1, C2, sub4, P)]
+    ref = _port(tp.ydrop_band_plain, C1, C2, sub4, P)
+    last = np.where(C1 >= 0, np.arange(ROWS), -1).max(1) + 1
+    assert np.array_equal(_jax_band(C1, C2, sub4, P), ref)
+    rows = tp.ydrop_band_rows(*args, band=BAND, max_rows=ROWS).numpy()
+    moved = 0
+    for b in np.flatnonzero(last < ROWS):
+        short = tp.ydrop_band_plain(
+            args[0][b: b + 1, : last[b]].contiguous(), args[1][b: b + 1],
+            args[2], args[3][b: b + 1], band=BAND, max_rows=int(last[b]))
+        moved += not torch.equal(short, torch.from_numpy(ref[b: b + 1]))
+    if gaps == (0, 0):
+        assert moved > B // 2 and (rows == ROWS).all()
+    else:
+        assert moved == 0 and (rows < ROWS).sum() > B // 4
