@@ -75,6 +75,24 @@ Phases, one line each (any failure exits nonzero):
                neither host x-drop scan called, no rewind to the scalar
                search; then the wide path, batch_xdrop_device on a
                40-code alphabet, against the same call on CPU tensors
+  farm         the query farm-out (parallel/farm.py): the pair's query
+               cut into FARM_QUERIES queries, run by the port's CLI
+               serially and over FARM_SLOTS = ["cuda:0", "cuda:0"] (two
+               worker threads on the card) in turns, every counter
+               reset before each: LAV byte-equal to the serial run and
+               that to lastz_tpu's host CLI (a child process); each
+               worker launched K1's mega launch, K2, the walk and the
+               chain walk, all on one non-default stream of its own
+               (the stream handle each C entry point was passed); the
+               DevicePositionTable never fetched to the host, and no
+               upload made twice on a worker's stream; with more than
+               one card, the farm over every card too; then two
+               processes of a gloo group on the card (LASTZ_TORCH_DIST)
+               with rank 0's LAV equal to the serial run; and the
+               --twins search over two workers on TWINS_FARM_BP of the
+               query cut into TWINS_FARM_QUERIES queries, equal to its
+               serial run, with K2 through the batched search's device
+               branch on both workers' streams
   4 extend     ops/ydrop_pallas.py's own path, with every counter
                reset before it: prepare_anchor_batch, then
                ydrop_extend_batch (K3) and ydrop_band_batch (K3b) on
@@ -98,7 +116,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from collections import Counter, defaultdict
 
 import numpy as np
 
@@ -1773,7 +1793,8 @@ def require_seed_on_device(st, seed_runs, what):
 def csr_uploads():
     """Position tables that device.carry_state digested and uploaded."""
     from lastz_tpu_torch import device
-    return sum(1 for k in device._CACHE if k[0] == "csr")
+    return sum(1 for mine in device._CACHE.values() for k in mine
+               if k[0] == "csr")
 
 
 def phase_main(card, pair, parent=None):
@@ -2070,6 +2091,325 @@ def wide_path(card):
     return launches
 
 
+# the farm phase: the pair's query cut into FARM_QUERIES queries (about
+# 520 kbp each), two workers on card 0; the --twins farm on the first
+# TWINS_FARM_BP of the query cut into TWINS_FARM_QUERIES queries
+FARM_QUERIES = 8
+FARM_SLOTS = ["cuda:0", "cuda:0"]
+TWINS_FARM_BP = 1_000_000
+TWINS_FARM_QUERIES = 4
+FARM_THREAD = "lastz-torch-farm-"
+
+
+def write_queries(path, q, n):
+    """q cut into n queries of about equal length, one FASTA."""
+    cut = np.linspace(0, len(q), n + 1).astype(int)
+    with open(path, "w") as f:
+        for i, (a, b) in enumerate(zip(cut[:-1], cut[1:])):
+            f.write(f">q{i}\n")
+            for j in range(a, b, 80):
+                f.write(bytes(q[j:min(j + 80, b)]).decode() + "\n")
+
+
+@contextlib.contextmanager
+def entry_streams():
+    """Every call of the kernel library's entry points inside the block
+    as (calling thread's name, entry, the stream handle it was passed,
+    the thread's current card); yields the list."""
+    import torch
+    from lastz_tpu_torch.kernels import build
+    lib = build.load()
+    seen = []
+    owns = {entry: getattr(lib, entry) for entry in build._SIGNATURES}
+
+    def recorder(entry, own):
+        def call(*a):
+            seen.append((threading.current_thread().name, entry, a[-1],
+                         torch.cuda.current_device()))
+            return own(*a)
+        return call
+    for entry, own in owns.items():
+        setattr(lib, entry, recorder(entry, own))
+    try:
+        yield seen
+    finally:
+        for entry, own in owns.items():
+            setattr(lib, entry, own)
+
+
+@contextlib.contextmanager
+def upload_watch():
+    """Counts the uploads that device._cached made inside the block, by
+    (device, stream, key); yields the Counter."""
+    from lastz_tpu_torch import device
+    made = Counter()
+    own = device._cached
+
+    def cached(dev, key, make):
+        def counted():
+            made[(*device.stream_key(dev), key)] += 1
+            return make()
+        return own(dev, key, counted)
+    device._cached = cached
+    try:
+        yield made
+    finally:
+        device._cached = own
+
+
+def farm_report(seen, workers, what, need=tuple(MAIN_ENTRIES)):
+    """Each of the `workers` farm threads launched the kernels `need`
+    (by default the main path's: K1's mega launch, K2, the walk and the
+    chain walk), every launch on one non-default stream of its own, and
+    no other thread launched; returns each worker's launches by
+    kernel and each one's (stream, card)."""
+    import torch
+    default = {torch.cuda.default_stream(d).cuda_stream
+               for d in range(torch.cuda.device_count())}
+    by_thread = defaultdict(list)
+    for name, entry, stream, dev in seen:
+        by_thread[name].append((entry, stream, dev))
+    names = [f"{FARM_THREAD}{k}" for k in range(workers)]
+    if set(by_thread) != set(names):
+        raise AssertionError(f"{what}: launches came from threads "
+                             f"{sorted(by_thread)}, not the workers {names}")
+    streams = {}
+    per_worker = {}
+    for name in names:
+        calls = by_thread[name]
+        own = {(stream, dev) for _, stream, dev in calls}
+        if len(own) != 1 or next(iter(own))[0] in default:
+            raise AssertionError(f"{what}: {name} launched on the streams "
+                                 f"{own}, not on one of its own")
+        streams[name] = own.pop()
+        n = Counter(entry for entry, _, _ in calls)
+        for k in need:
+            if not n[MAIN_ENTRIES[k]]:
+                raise AssertionError(f"{what}: {name} never launched {k}")
+        per_worker[name] = {k: n[e] for k, e in MAIN_ENTRIES.items()}
+    if len(set(streams.values())) != workers:
+        raise AssertionError(f"{what}: workers shared a stream: {streams}")
+    return per_worker, {k: list(v) for k, v in streams.items()}
+
+
+def require_single_uploads(made, what):
+    """No upload was made twice on one stream, and no position table
+    was digested and uploaded (the device-built one is read in place)."""
+    twice = {k: n for k, n in made.items() if n > 1}
+    if twice:
+        raise AssertionError(f"{what}: uploads made more than once on a "
+                             f"stream: {list(twice.values())}")
+    if any(k[2][0] == "csr" for k in made):
+        raise AssertionError(f"{what}: the position table was uploaded")
+
+
+def farm_run(argv, out, slots, *contexts, farmed=True):
+    """run_port with the pipeline's FARM_SLOTS set to `slots` (None: the
+    serial run); requires that run_farmed ran where slots are given and
+    `farmed`, and nowhere else."""
+    import lastz_tpu_torch.pipeline as tpipe
+    from lastz_tpu_torch import device
+    from lastz_tpu_torch.parallel import farm
+    device._CACHE.clear()
+    ran = []
+    tpipe.FARM_SLOTS = slots
+    try:
+        got = run_port(argv, out, observed(
+            farm, "run_farmed", lambda a, kw, res: ran.append(len(a[3]))),
+            *contexts)
+    finally:
+        tpipe.FARM_SLOTS = None
+    if bool(ran) != (slots is not None and farmed):
+        raise AssertionError(f"farm over {slots}: run_farmed ran {ran}")
+    return got
+
+
+# one rank of a two-process gloo group on the card: the port's CLI with
+# LASTZ_TORCH_DIST=1, jax and lastz_tpu blocked; rank 0 keeps its LAV
+_DIST = r"""
+import contextlib, io, sys
+rank, world, addr, out, root = sys.argv[1:6]
+sys.modules["jax"] = None
+sys.modules["lastz_tpu"] = None
+sys.path.insert(0, root)
+import torch
+import torch.distributed as dist
+dist.init_process_group("gloo", init_method=addr, world_size=int(world),
+                        rank=int(rank))
+from lastz_tpu_torch import cli
+from lastz_tpu_torch.parallel import distributed
+ran = []
+own = distributed.run_distributed
+def run_distributed(*a):
+    ran.append(1)
+    return own(*a)
+distributed.run_distributed = run_distributed
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = cli.main(sys.argv[6:])
+torch.cuda.synchronize()
+assert rc == 0 and ran, (rc, ran)
+if rank == "0":
+    with open(out, "w") as f:
+        f.write(buf.getvalue())
+dist.destroy_process_group()
+print("RANK_DONE", rank)
+"""
+
+
+def run_dist(tdir, argv, out, world=2):
+    """The port's CLI in `world` processes of a gloo group over
+    localhost, all on the card; returns the wall seconds."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        addr = f"tcp://127.0.0.1:{sk.getsockname()[1]}"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("LASTZ_TPU_")}
+    env.update(LASTZ_TORCH_DIST="1", LASTZ_TORCH_DEVICE="cuda")
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DIST, str(r), str(world), addr, out, ROOT,
+         *argv], env=env, cwd=tdir, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE) for r in range(world)]
+    results = []
+    try:
+        for p in procs:
+            results.append((*p.communicate(timeout=600), p.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (so, se, rc) in enumerate(results):
+        if rc != 0 or "RANK_DONE" not in so:
+            raise RuntimeError(f"gloo rank {r} exited {rc}: {se[-2000:]}")
+    return time.monotonic() - t0
+
+
+def phase_farm(card, pair):
+    """The query farm-out on the card (see the module's docstring);
+    returns each worker's launches by kernel in the first farm run."""
+    import torch
+    from lastz_tpu_torch.index.postable import DevicePositionTable
+    workers = len(FARM_SLOTS)
+    with tempfile.TemporaryDirectory() as tdir:
+        t, q, _ = pair
+        tp = os.path.join(tdir, "t.fa")
+        _write_fasta(tp, "t", t)
+        qp = os.path.join(tdir, "q.fa")
+        write_queries(qp, q, FARM_QUERIES)
+        argv = [tp, qp]
+        say("farm", queries=FARM_QUERIES, query_bp=len(q), slots=FARM_SLOTS,
+            card=card)
+        turns = []
+        lav = {}
+        per_worker = None
+        for turn, who in enumerate(("serial", "farm", "farm", "serial")):
+            out = os.path.join(tdir, f"{who}{turn}.lav")
+            wall, launches, st, seed_runs, (_, seen, made, built) = \
+                farm_run(argv, out, FARM_SLOTS if who == "farm" else None,
+                         entry_streams(), upload_watch(), table_watch())
+            what = f"farm phase, {who} run {turn}"
+            require_in_place(built, what)
+            require_single_uploads(made, what)
+            require_seed_on_device(st, seed_runs, what)
+            require_launched(launches, tuple(MAIN_ENTRIES))
+            lav[turn] = read_bytes(out)
+            turns.append(dict(run=who, wall_s=wall))
+            # a farm run's timers are its workers' summed
+            say("farm", run=who, turn=turn, wall_s=wall, launches=launches,
+                gapped_device=st.gapped_device, alignments=st.alignments,
+                timers={k: round(v, 3) for k, v in st.timers.items()},
+                uploads=sum(made.values()),
+                host_fetches=DevicePositionTable.host_fetches, card=card)
+            if who == "farm":
+                got, streams = farm_report(seen, workers, what)
+                say("farm", turn=turn, launches_per_worker=got,
+                    worker_streams=streams, card=card)
+                per_worker = per_worker or got
+        if len(set(lav.values())) != 1 or b"a {" not in lav[0]:
+            raise AssertionError("farm: the farm's LAV differs from the "
+                                 "serial run's (or holds no alignment)")
+        host_out = os.path.join(tdir, "host.lav")
+        host_s = run_host(argv, host_out)
+        same = read_bytes(host_out) == lav[0]
+        say("farm", run="lastz_tpu.cli host", wall_s=host_s,
+            lav_bytes=len(lav[0]), lav_equal=same, card=card)
+        if not same:
+            raise AssertionError("farm: the serial LAV differs from "
+                                 "lastz_tpu's host LAV")
+        say("farm", walls_in_turns=turns, card=card)
+        cards = torch.cuda.device_count()
+        if cards > 1:
+            slots = [f"cuda:{d}" for d in range(cards)]
+            out = os.path.join(tdir, "cards.lav")
+            wall, _, _, _, (_, seen, made) = farm_run(
+                argv, out, slots, entry_streams(), upload_watch())
+            got, streams = farm_report(seen, cards, "farm over every card")
+            require_single_uploads(made, "farm over every card")
+            say("farm", slots=slots, wall_s=wall, launches_per_worker=got,
+                worker_streams=streams, lav_equal=read_bytes(out) == lav[0],
+                card=card)
+            if read_bytes(out) != lav[0]:
+                raise AssertionError("farm over every card: other LAV")
+            # a job the farm declines (--census) runs serially, its
+            # queries pinned to the cards in turn
+            census = []
+            for who, slots_ in (("serial", None), ("pinned", slots)):
+                out = os.path.join(tdir, f"census.{who}.lav")
+                wall, _, _, _, (_, seen) = farm_run(
+                    argv + ["--census"], out, slots_, entry_streams(),
+                    farmed=False)
+                census.append(read_bytes(out))
+                on = sorted({d for _, _, _, d in seen})
+                say("farm", run=f"--census {who}", wall_s=wall,
+                    cards_launched_on=on, card=card)
+            if census[0] != census[1] or on != list(range(cards)):
+                raise AssertionError("--census pinned over every card: "
+                                     "other LAV, or not on every card")
+        dist_out = os.path.join(tdir, "dist.lav")
+        dist_s = run_dist(tdir, argv, dist_out)
+        same = read_bytes(dist_out) == lav[0]
+        say("farm", run="two gloo processes on the card", wall_s=dist_s,
+            lav_equal=same, card=card)
+        if not same:
+            raise AssertionError("farm: rank 0's LAV differs from the "
+                                 "serial run's")
+        farm_twins(card, tdir, tp, q)
+    return per_worker
+
+
+def farm_twins(card, tdir, tp, q):
+    """--twins over two workers on TWINS_FARM_BP of the query cut into
+    TWINS_FARM_QUERIES queries: the serial run's LAV, and K2 launched
+    through the batched search's device branch on both workers' own
+    streams, no host x-drop scan."""
+    qp = os.path.join(tdir, "twins.fa")
+    write_queries(qp, q[:TWINS_FARM_BP], TWINS_FARM_QUERIES)
+    argv = [tp, qp, *TWINS_OPTIONS]
+    lav = []
+    for who, slots in (("serial", None), ("farm", FARM_SLOTS)):
+        out = os.path.join(tdir, f"twins.{who}.lav")
+        wall, launches, st, _, (_, calls, seen) = farm_run(
+            argv, out, slots, batched_calls(), entry_streams())
+        lav.append(read_bytes(out))
+        say("farm", run=f"twins {who}", options=TWINS_OPTIONS,
+            queries=TWINS_FARM_QUERIES, query_bp=TWINS_FARM_BP, wall_s=wall,
+            launches=launches, batched_calls=calls, card=card)
+        if (calls["batch_xdrop_device"] <= 0 or calls["batch_xdrop_native"]
+                or calls["batch_xdrop_np"] or calls["restore"]):
+            raise AssertionError(f"twins {who}: the batched search did not "
+                                 f"run on the device only: {calls}")
+        if slots is not None:
+            got, streams = farm_report(seen, len(slots), "twins farm",
+                                       need=("xdrop_scan",))
+            say("farm", run="twins farm", launches_per_worker=got,
+                worker_streams=streams, card=card)
+    if lav[0] != lav[1] or b"a {" not in lav[0]:
+        raise AssertionError("twins farm: LAV differs from the serial run")
+
+
 def phase_index(card, pair):
     """The device build of the position table against the host build,
     on the main path's target and on an INDEX_BP target with lowercase
@@ -2193,6 +2533,7 @@ def main(argv=None):
         card, pair, args.parent)
     mode_launches, recover_chain = phase_modes(card, pair)
     batched_launches = phase_batched(card, pair)
+    farm_launches = phase_farm(card, pair)
     rows.append(chain_row(card, chain_err, main_chain, recover_chain))
     launches.update({k: v for k, v in phase_extend(card, pair, refs).items()
                      if k in ("ydrop_wavefront", "ydrop_band")})
@@ -2222,6 +2563,9 @@ def main(argv=None):
         if name in ("xdrop_scan", "resolve_chains"):
             r["launches_by_seed_mode"] = {
                 k: v[name] for k, v in mode_launches.items()}
+        if name in MAIN_ENTRIES:
+            r["farm_launches_per_worker"] = {
+                k: v[name] for k, v in farm_launches.items()}
         if name == "xdrop_scan":
             r["launches_by_batched_mode"] = {
                 k: v["xdrop_scan"] for k, v in batched_launches.items()}

@@ -1487,14 +1487,15 @@ def gapped_extend(target, query, scoring, anchors: SegmentTable,
                   all_bounds=False, max_paired_bases=0,
                   overly_paired_warn=False, overly_paired_keep=False,
                   on_overly_paired=None, use_device=True,
-                  truncation_report=True):
+                  truncation_report=True, device=None):
     """reference gapped_extend (gapped_extend.c:1012), unpartitioned path.
 
     Returns list of Alignment in increasing-start order.  When
     use_device is on, extensions run batched through the exact y-drop
-    kernel on device.get_device(), and only anchors whose DP could
-    interact with previously accepted alignments run on the host
-    engine (see align/ydrop_device.py); a device failure is an error.
+    kernel on `device` (the pipeline's; device.get_device() when None),
+    and only anchors whose DP could interact with previously accepted
+    alignments run on the host engine (see align/ydrop_device.py); a
+    device failure is an error.
     """
     thresh = score_thresh.s if score_thresh is not None else 0
 
@@ -1534,7 +1535,7 @@ def gapped_extend(target, query, scoring, anchors: SegmentTable,
         from .ydrop_device import DeviceYDrop
         device = DeviceYDrop(target.v, query.v, scoring, y_drop,
                              trim_to_peak, traceback_mem, seg_infos,
-                             get_device())
+                             get_device() if device is None else device)
         if not device.ok:
             device = None
     # incremental index over accepted alignments: obi/oed linked lists,

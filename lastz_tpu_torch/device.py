@@ -12,12 +12,22 @@ alphabet and the SEQ_PAD-padded sequence codes
 digest of their content, never by id() or data_ptr(): a freed array's
 id can be reused by the other strand's sequence.  A position table
 built on the device is already there and is used in place.
+
+The farm (parallel/farm.py) runs several pipelines at once, each in
+its own thread with its own CUDA stream.  So the upload cache is kept
+per (device, stream): an upload is read only on the stream that made
+it, and freed only from its own cache, so no stream reads a tensor
+another stream is still writing, and none is handed back to the
+caching allocator while another stream reads it.  A worker drops its
+stream's entries when it ends (release_stream).
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -30,22 +40,50 @@ ENV_DEVICE = "LASTZ_TORCH_DEVICE"
 # lastz_tpu/ops/hitgen.py:55, kept so both packages share one layout)
 SEQ_PAD = 20608
 
+# (device, stream) -> that stream's uploads, least recently used first
 _CACHE: dict = {}
 _CACHE_MAX = 8
+_CACHE_LOCK = threading.Lock()
 
 
 def get_device() -> torch.device:
+    """LASTZ_TORCH_DEVICE's device, a card with its index resolved
+    (the calling thread's current card)."""
     name = os.environ.get(ENV_DEVICE, "cuda")
-    if name == "cpu":
-        return torch.device("cpu")
-    if name != "cuda":
+    if name not in ("cuda", "cpu"):
         raise ValueError(
             f"{ENV_DEVICE} must be 'cuda' or 'cpu', not {name!r}")
+    return resolve_device(name)
+
+
+def resolve_device(name) -> torch.device:
+    """torch.device(name) with a card's index resolved: `cuda` is the
+    calling thread's current card.  A card that torch does not see
+    raises; nothing falls back to the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {name!r}: 'cuda[:i]' or "
+                         f"'cpu'")
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"{ENV_DEVICE}=cuda but torch finds no CUDA device; set "
             f"{ENV_DEVICE}=cpu to run the plain PyTorch versions")
-    return torch.device("cuda")
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if not 0 <= index < torch.cuda.device_count():
+        raise RuntimeError(f"{name}: torch sees "
+                           f"{torch.cuda.device_count()} CUDA devices")
+    return torch.device("cuda", index)
+
+
+def stream_key(device) -> tuple:
+    """(device, the calling thread's current stream on it): the key of
+    the uploads a stream may read.  The CPU has no streams."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return (str(device), None)
+    return (str(device), torch.cuda.current_stream(device).cuda_stream)
 
 
 def content_key(*arrays) -> str:
@@ -61,13 +99,32 @@ def content_key(*arrays) -> str:
     return h.hexdigest()
 
 
-def _cached(key, make):
-    hit = _CACHE.get(key)
-    if hit is None:
-        if len(_CACHE) >= _CACHE_MAX:
-            _CACHE.clear()
-        hit = _CACHE[key] = make()
+def _cached(device, key, make):
+    """The upload `key` on the calling thread's stream of `device`,
+    made by make() on a miss; each stream keeps its _CACHE_MAX most
+    recently used uploads."""
+    sk = stream_key(device)
+    with _CACHE_LOCK:
+        mine = _CACHE.setdefault(sk, OrderedDict())
+        hit = mine.get(key)
+        if hit is not None:
+            mine.move_to_end(key)
+            return hit
+    hit = make()
+    with _CACHE_LOCK:
+        mine = _CACHE.setdefault(sk, OrderedDict())
+        mine[key] = hit
+        while len(mine) > _CACHE_MAX:
+            mine.popitem(last=False)
     return hit
+
+
+def release_stream(device) -> None:
+    """Drop the uploads of the calling thread's stream on `device` (a
+    farm worker, after it synchronized that stream)."""
+    sk = stream_key(device)
+    with _CACHE_LOCK:
+        _CACHE.pop(sk, None)
 
 
 def upload_codes(seq, code_map, device, pad: int = 0,
@@ -75,14 +132,13 @@ def upload_codes(seq, code_map, device, pad: int = 0,
     """Compact-alphabet codes of `seq` as `dtype` (int8, or uint8 for
     alphabets past 127 codes) on `device`, with `pad` zeros on both
     sides."""
-    key = ("codes", content_key(seq, code_map), pad, str(device),
-           np.dtype(dtype).str)
+    key = ("codes", content_key(seq, code_map), pad, np.dtype(dtype).str)
 
     def make():
         host = np.zeros(len(seq) + 2 * pad, dtype)
         host[pad:pad + len(seq)] = code_map[seq]
         return torch.from_numpy(host).to(device)
-    return _cached(key, make)
+    return _cached(device, key, make)
 
 
 def upload_position_table(pt, device) -> dict:
@@ -90,14 +146,14 @@ def upload_position_table(pt, device) -> dict:
     (alive as uint8, or None when every entry is alive).  A table built
     on a device (index/postable.DevicePositionTable) is taken as it
     is, with neither a digest nor a fetch of its arrays, while it is
-    unchanged since its build (lastz_tpu/search/device_hits.py:93-116);
-    a host table is uploaded once and cached by content."""
+    unchanged since its build (lastz_tpu/search/device_hits.py:93-116),
+    copied once to another card (DevicePositionTable.on); a host table
+    is uploaded once a stream and cached by content."""
     if getattr(pt, "in_place", False):
-        return dict(csr_start=pt.dev_csr_start.to(device),
-                    csr_pos=pt.dev_csr_pos.to(device), alive=None,
+        csr_start, csr_pos = pt.on(device)
+        return dict(csr_start=csr_start, csr_pos=csr_pos, alive=None,
                     adj_start=int(pt.adj_start), step=int(pt.step))
-    key = ("csr", content_key(pt.csr_start, pt.csr_pos, pt.alive),
-           str(device))
+    key = ("csr", content_key(pt.csr_start, pt.csr_pos, pt.alive))
 
     def make():
         def up(a, dt):
@@ -107,7 +163,7 @@ def upload_position_table(pt, device) -> dict:
             csr_pos=up(pt.csr_pos, np.int32),
             alive=(up(pt.alive, np.uint8) if pt.alive is not None
                    else None))
-    arrs = _cached(key, make)
+    arrs = _cached(device, key, make)
     return dict(arrs, adj_start=int(pt.adj_start), step=int(pt.step))
 
 

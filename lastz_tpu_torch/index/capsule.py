@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 
 import numpy as np
 
@@ -216,6 +217,7 @@ class DeviceIndex:
 
 
 _DEVICE_CACHE: dict = {}
+_DEVICE_CACHE_LOCK = threading.Lock()
 
 
 def open_capsule_to_device(path: str, device):
@@ -224,11 +226,21 @@ def open_capsule_to_device(path: str, device):
     the same device copy (port of lastz_tpu/index/capsule.py:227-241;
     reference capsule_position_table, capsule.c:668).  Returns (target,
     pt, dev): pt is a DevicePositionTable over dev's tensors, with the
-    capsule's mapped arrays as its host copies."""
+    capsule's mapped arrays as its host copies.  An entry is built once,
+    under a lock, and its uploading stream synchronized, so that any
+    thread's stream may read it."""
+    from ..device import resolve_device
+    device = resolve_device(device)
     key = (os.path.abspath(path), os.stat(path).st_mtime_ns, str(device))
-    hit = _DEVICE_CACHE.get(key)
-    if hit is not None:
-        return hit
+    with _DEVICE_CACHE_LOCK:
+        hit = _DEVICE_CACHE.get(key)
+        if hit is None:
+            hit = _DEVICE_CACHE[key] = _capsule_to_device(path, device)
+    return hit
+
+
+def _capsule_to_device(path: str, device):
+    import torch
     target, host = open_capsule_file(path)
     if len(host.csr_pos) >= (1 << 31):
         raise ValueError(f"capsule {path}: {len(host.csr_pos)} index "
@@ -240,5 +252,6 @@ def open_capsule_to_device(path: str, device):
         dev_csr_pos=dev.csr_pos, n_entries=len(host.csr_pos),
         csr_resolve=host.csr_resolve, host_start=host.csr_start,
         host_pos=host.csr_pos)
-    _DEVICE_CACHE[key] = (target, pt, dev)
-    return _DEVICE_CACHE[key]
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return target, pt, dev

@@ -18,6 +18,7 @@ adj_start = start - (start % step), mirroring pos_table.c:1018-1122.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -290,6 +291,29 @@ class DevicePositionTable(PositionTable):
         self._host_start = host_start
         self._host_pos = host_pos
         self._assigned = False
+        self._copies = {}  # device -> (csr_start, csr_pos), see on()
+        self._copy_lock = threading.Lock()
+
+    def on(self, device):
+        """(csr_start, csr_pos) on `device`: the table's own tensors on
+        the device it was built on, else one copy a device, made at the
+        first call.  The copying stream is synchronized once, so every
+        stream of that device may read the copy."""
+        import torch
+
+        from ..device import resolve_device
+        device = resolve_device(device)
+        if device == self.dev_csr_start.device:
+            return self.dev_csr_start, self.dev_csr_pos
+        with self._copy_lock:
+            hit = self._copies.get(device)
+            if hit is None:
+                hit = (self.dev_csr_start.to(device),
+                       self.dev_csr_pos.to(device))
+                if device.type == "cuda":
+                    torch.cuda.current_stream(device).synchronize()
+                self._copies[device] = hit
+        return hit
 
     @property
     def in_place(self) -> bool:

@@ -16,7 +16,7 @@ module on a machine without nvcc.  ptxas's register and shared-memory
 report goes to a .log file beside the library.
 
 Each C entry point returns the launch's cudaGetLastError() code; the
-wrappers raise when it is not 0.
+wrappers raise when it is not 0, and count the launch with count().
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIB = None
+_COUNT_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -129,6 +130,16 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
+
+
+def count(fn, counter: str = "launches", **more) -> None:
+    """fn.<counter> += 1 (a wrapper's launch of its kernel), and each of
+    `more`'s counters of fn by its value, under one lock: the farm's
+    workers launch from several threads at once."""
+    with _COUNT_LOCK:
+        setattr(fn, counter, getattr(fn, counter) + 1)
+        for name, n in more.items():
+            setattr(fn, name, getattr(fn, name) + n)
 
 
 def check(rc: int, what: str) -> None:

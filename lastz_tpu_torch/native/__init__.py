@@ -12,9 +12,11 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 
 _LIB = None
 _TRIED = False
+_LOCK = threading.Lock()
 
 _SRCS = [
     os.path.join(os.path.dirname(__file__), "ydrop_row.cpp"),
@@ -91,11 +93,19 @@ def _build_lib() -> str | None:
 
 
 def get_lib():
-    """Return the loaded native library, or None if unavailable."""
+    """Return the loaded native library, or None if unavailable.  The
+    first caller builds and binds it under a lock: a second thread
+    (a farm worker) waits for it and gets the same library, and never
+    takes the Python tier because the build was still running."""
     global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
+    with _LOCK:
+        if not _TRIED:
+            _LIB = _load()
+            _TRIED = True
+    return _LIB
+
+
+def _load():
     path = _build_lib()
     if path is None:
         return None
@@ -199,5 +209,4 @@ def get_lib():
         f64, f64, f64, f64, f64,   # scale, diagPen, antiPen, subPen, clip
         p_f64, p_i64,              # chain_score_out, back_out
     ]
-    _LIB = lib
-    return _LIB
+    return lib

@@ -75,8 +75,7 @@ def resolve_chains(starts, lens, extent_s, start2_s, de0_s, live_s,
         fin[0].data_ptr(), fin[1].data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     build.check(rc, "resolve_chains")
-    resolve_chains.launches += 1
-    resolve_chains.recover_launches += int(recover)
+    build.count(resolve_chains, recover_launches=int(recover))
     # on the card, without a host sync: hit_launch fetches it with its
     # other counts
     converged = lens.max() <= RESOLVE_CHAIN_CAP

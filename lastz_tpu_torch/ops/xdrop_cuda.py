@@ -70,8 +70,7 @@ def xdrop_scan(seq1p, seq2p, subflat, K: int, pos1, pos2, n_l, n_r,
         out.data_ptr(), queue.data_ptr(), counters.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     build.check(rc, "xdrop_scan")
-    xdrop_scan.launches += 1
-    xdrop_scan.wide_launches += wide
+    build.count(xdrop_scan, wide_launches=int(wide))
     return tuple(out[:3]), tuple(out[3:])
 
 

@@ -85,7 +85,7 @@ def ydrop_chunk(a_small, b_small, b_off, shift, M, N, state, subsmall,
         y_drop, int(trim_to_peak), tb_cap, y_drop_tail(y_drop, gap_e),
         _stream())
     build.check(rc, "ydrop_chunk")
-    ydrop_chunk.launches += 1
+    build.count(ydrop_chunk)
     out = {"CC": CC, "DD": DD}
     for i, k in enumerate(SCALAR_KEYS):
         out[k] = sc[:, i] != 0 if k in ("bflag", "done") else sc[:, i]
@@ -149,7 +149,7 @@ def ydrop_mega(v1c, v2c, a1, a2, low1, high1, low2, high2, rev, M, N,
         nblk.data_ptr(), B, W, rows, gap_e, gap_oe, y_drop,
         int(trim_to_peak), tb_cap, y_drop_tail(y_drop, gap_e), _stream())
     build.check(rc, "ydrop_mega")
-    ydrop_mega.launches += 1
+    build.count(ydrop_mega)
     st = {"CC": CC, "DD": DD}
     for i, k in enumerate(SCALAR_KEYS):
         st[k] = sc[:, i] != 0 if k in ("bflag", "done") else sc[:, i]
@@ -185,7 +185,7 @@ def traceback_mega(tb_all, row_lo, row_hi, col0, nblk, end1, end2, want,
         n.data_ptr(), row.data_ptr(), col.data_ptr(), B, K, R1, W, cap,
         _stream())
     build.check(rc, "traceback_mega")
-    traceback_mega.launches += 1
+    build.count(traceback_mega)
     return ops, n, row, col
 
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..core.scoring import NEG_INFINITY_SCORE
+from ..kernels import build
 
 C_FROM_C = 0
 C_FROM_I = 1
@@ -435,7 +436,7 @@ def ydrop_mega_plain(v1c, v2c, a1, a2, low1, high1, low2, high2, rev, M,
     col0 = torch.zeros_like(row_lo)
     for k in range(max_blocks):
         active = ~st["done"]
-        ydrop_mega_plain.host_reads += 1
+        build.count(ydrop_mega_plain, "host_reads")
         if not bool(active.any()):
             break
         row_base = st["row"] - 1

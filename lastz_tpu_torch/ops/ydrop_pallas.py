@@ -424,7 +424,7 @@ def ydrop_extend_batch(codes1, codes2, sub4, params, band: int = 512,
                          f"{codes1.device}")
     out = _launch("ydrop_wavefront_launch", codes1, codes2, sub4, params,
                   band, max_rows)
-    ydrop_extend_batch.launches += 1
+    build.count(ydrop_extend_batch)
     return out
 
 
@@ -443,7 +443,7 @@ def ydrop_band_batch(codes1, codes2, sub4, params, band: int = 512,
                          f"{codes1.device}")
     out = _launch("ydrop_band_launch", codes1, codes2, sub4, params, band,
                   max_rows)
-    ydrop_band_batch.launches += 1
+    build.count(ydrop_band_batch)
     return out
 
 

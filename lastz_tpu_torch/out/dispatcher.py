@@ -129,6 +129,27 @@ class OutputDispatcher:
 
     # -- lifecycle ---------------------------------------------------------
 
+    def farm_chunkable(self) -> bool:
+        """True when this dispatcher's output for each query is a
+        self-contained byte chunk — no cross-query accumulators and
+        no side output files — so concurrent farm-out workers
+        (parallel/farm.py) can emit per-query chunks that the parent
+        stitches back in stream order, byte-identical to a serial
+        run."""
+        if self.secondaries:
+            return False          # side files written out of order
+        if self._iddist is not None or self._infstats is not None:
+            return False          # job-wide distributions
+        if self._genpaf_keys is not None and (
+                "[" in self._genpaf_keys or "]" in self._genpaf_keys):
+            return False          # global alignment numbering
+        if self._genpaf_keys is not None and "(" in self._genpaf_keys:
+            # hspid: SegmentTable numbers HSPs process-wide, so workers'
+            # numbers interleave (lastz_tpu's farm_chunkable lets this
+            # through, and its farm output differs from its serial run)
+            return False
+        return True
+
     def set_sequences(self, seq1, seq2):
         self.seq1 = seq1
         self.seq2 = seq2

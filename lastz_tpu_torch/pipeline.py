@@ -9,6 +9,8 @@ chaining + gapped extension, filtering, interpolation and output.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 from typing import Optional
 
@@ -27,10 +29,24 @@ from .io.sequence import SequenceFile, Sequence
 from .out.dispatcher import OutputDispatcher
 from .search.engine import SeedSearchEngine, HitProcessorParams
 from .align.segments import SegmentTable, Segment
-from .device import get_device
+from .device import get_device, resolve_device
 
 # the program name written in the output: the same bytes as lastz_tpu
 PROGRAM_NAME = "lastz_tpu.v0.1.0"
+
+# the device slots of the query farm-out (parallel/farm.py).  None: with
+# LASTZ_TORCH_FARM=1 and the pipeline on a card, every visible card;
+# else a list of device names ("cuda:0", "cpu", ...), a name listed
+# twice running two workers on that device.  The farm runs at two slots
+# or more.  Like the y-drop geometry, a constant and not a switch.
+FARM_SLOTS = None
+
+# test instrumentation for the farm-out concurrency test: peak number
+# of queries simultaneously inside the injected device-latency window
+import threading as _threading
+_FARM_TEST_LOCK = _threading.Lock()
+_FARM_TEST_INFLIGHT = 0
+_FARM_TEST_PEAK = 0
 
 
 def _upper_truncate(script, pos1, pos2):
@@ -223,7 +239,7 @@ def _masking_interval_line(target, beg, end, three_fields):
 
 
 class Pipeline:
-    def __init__(self, cfg: Config, out=None, collector=None):
+    def __init__(self, cfg: Config, out=None, collector=None, device=None):
         self.cfg = cfg
         self.out = out or sys.stdout
         self._finalize_config()
@@ -240,14 +256,53 @@ class Pipeline:
         self._search_limit_exceeded = 0
         self._limit_warned_once = False
         self._paired_warned_once = False
-        # the torch device of the seed search (LASTZ_TORCH_DEVICE)
-        self.device = get_device()
+        # the torch device of the seed search and the gapped stage:
+        # LASTZ_TORCH_DEVICE's, or a farm worker's slot
+        self.device = (get_device() if device is None
+                       else resolve_device(device))
+        self._farm_cache = None
+
+    def _farm_devices(self):
+        """Device slots of the query farm-out (FARM_SLOTS, or every
+        visible card under LASTZ_TORCH_FARM=1); [] below two slots."""
+        if self._farm_cache is not None:
+            return self._farm_cache
+        devs = []
+        if FARM_SLOTS is not None:
+            devs = [resolve_device(d) for d in FARM_SLOTS]
+        elif (os.environ.get("LASTZ_TORCH_FARM", "") not in ("", "0")
+                and self.device.type == "cuda"):
+            import torch
+            devs = [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        if len(devs) < 2:
+            devs = []
+        self._farm_cache = devs
+        return devs
+
+    @contextlib.contextmanager
+    def _pinned(self, device):
+        """One query's device work on `device` (a farm slot): the
+        pipeline's device and, on a card, the thread's current card."""
+        saved = self.device
+        self.device = device
+        try:
+            if device.type == "cuda":
+                import torch
+                with torch.cuda.device(device):
+                    yield
+            else:
+                yield
+        finally:
+            self.device = saved
 
     # -- configuration finalization (lastz.c:8900-9400) --------------------
 
     def _finalize_config(self):
         cfg = self.cfg
         from .core.scoring import set_score_type
+        # process-wide: every farm worker sets it from the same
+        # configuration, so concurrent workers agree on its value
         set_score_type(cfg.score_type)
         if cfg.scoring is None:
             cfg.scoring = new_dna_score_set()
@@ -511,7 +566,32 @@ class Pipeline:
 
         num_queries = 0
         progress_clock = None
-        while True:
+        farmed = False
+        farm = self._farm_devices()
+        if len(farm) > 1 and not getattr(self, "_farm_worker", False):
+            # concurrent farm-out over device slots (parallel/farm.py):
+            # worker pipelines over query shards, one thread and one
+            # stream per slot, with per-query output chunks stitched
+            # back in stream order — the reference's N-process capsule
+            # farm-out (capsule.c:6-15) as threads over devices
+            from .parallel.farm import farm_supported, run_farmed
+            if farm_supported(self):
+                run_farmed(self, target, pt, farm,
+                           lambda c, o, d: Pipeline(c, o, device=d))
+                farmed = True
+        if not farmed and not getattr(self, "_farm_worker", False):
+            # multi-process query sharding over torch.distributed
+            # (parallel/distributed.py): per-process shard pipelines,
+            # census all-reduce, rank-0 output merge
+            from .parallel.distributed import (
+                dist_enabled, dist_supported, process_count,
+                run_distributed)
+            if dist_enabled() and process_count() > 1 \
+                    and dist_supported(self):
+                run_distributed(self, target, pt,
+                                lambda c, o, d: Pipeline(c, o, device=d))
+                farmed = True
+        while not farmed:
             query = query_file.load()
             if query is None:
                 break
@@ -527,6 +607,10 @@ class Pipeline:
                 # the per-shard outputs concatenate (capsule.c:6-15)
                 if (num_queries - 1) % cfg.shard_count != cfg.shard_index:
                     continue
+            if hasattr(self.out, "begin_query"):
+                # farm-out worker: open this query's output chunk
+                # (parallel/farm.py stitches chunks in stream order)
+                self.out.begin_query(num_queries)
             if cfg.progress and (cfg.progress == 1
                                  or num_queries % cfg.progress == 1):
                 # --progress=<n> (lastz.c dbgQueryProgress)
@@ -543,8 +627,25 @@ class Pipeline:
             if cfg.which_strand < 0 and query.chore is None:
                 self._rev_comp_query(query)
 
-            self._run_query(target, pt, query,
-                            collect_from_both, collect_separately)
+            farm = self._farm_devices()
+            if farm:
+                # pin each query's device work (seed search and gapped
+                # kernels) to a slot round-robin: a job the farm
+                # declines still spreads its queries over the slots.
+                # Per-query results are host-gathered in stream order,
+                # so output is identical for any slot count.
+                with self._pinned(farm[(num_queries - 1) % len(farm)]):
+                    self._run_query(target, pt, query,
+                                    collect_from_both, collect_separately)
+            else:
+                self._run_query(target, pt, query,
+                                collect_from_both, collect_separately)
+
+        if hasattr(self.out, "end_queries"):
+            # farm-out worker: the job footer below is the PARENT's
+            # to emit; close the last query's chunk so it stays
+            # self-contained
+            self.out.end_queries()
 
         # --outputmasking files (lastz.c:1731-1759): written before the
         # m-stanza; the dynamic file reports census runs over threshold,
@@ -620,6 +721,25 @@ class Pipeline:
                    collect_separately):
         cfg = self.cfg
         disp = self.dispatcher
+
+        delay = os.environ.get("LASTZ_TORCH_FARM_TEST_DELAY")
+        if delay:
+            # test hook: stand in for per-query device latency (a
+            # blocked device fetch releases the GIL exactly like this
+            # sleep) so farm-out concurrency is measurable on a
+            # single-core CI host; peak in-flight count is recorded
+            # so the overlap assertion is load-independent
+            import time
+            global _FARM_TEST_INFLIGHT, _FARM_TEST_PEAK
+            with _FARM_TEST_LOCK:
+                _FARM_TEST_INFLIGHT += 1
+                _FARM_TEST_PEAK = max(_FARM_TEST_PEAK,
+                                      _FARM_TEST_INFLIGHT)
+            try:
+                time.sleep(float(delay))
+            finally:
+                with _FARM_TEST_LOCK:
+                    _FARM_TEST_INFLIGHT -= 1
 
         if cfg.min_match_count_ratio != 0:
             # per-query resolution of --filter=nmatch:<pct>% (lastz.c:1520)
@@ -990,6 +1110,7 @@ class Pipeline:
                     on_overly_paired=self._make_paired_warner(
                         query, max_paired),
                     truncation_report=not cfg.no_truncation_report,
+                    device=self.device,
                 )
             align_list = self._filter_aligns(target, query, align_list)
             if align_list and cfg.inner_threshold > 0:

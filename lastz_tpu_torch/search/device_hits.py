@@ -29,7 +29,8 @@ from .. import stats as _stats
 from ..config import GFEX_NO_EXTEND, GFEX_XDROP
 from ..core import scoring as _scoring
 from ..core.scoring import entropy
-from ..device import carry_state
+from ..device import carry_state, stream_key
+from ..kernels import build
 from ..ops.hitgen import (HIT_BUDGET, OUT_CAP, expand_chunk, hit_launch,
                           pack_query_words, pair_counts)
 from .batched import _probe_budgets, _probe_xors
@@ -79,17 +80,18 @@ def supported(engine) -> bool:
 
 def _csr_resolve_on(pt, device):
     """The table's per-entry resolving words on `device` as int32 (their
-    bits read unsigned), uploaded once per table: the cache entry holds
-    the host array itself, so a rebuilt array is never served the old
-    upload (lastz_tpu/search/device_hits.py:259-268)."""
-    cached = getattr(pt, "_hitgen_res_dev", None)
-    if cached is None or cached[0] is not pt.csr_resolve \
-            or cached[1] != device:
+    bits read unsigned), uploaded once per table and stream (the farm's
+    workers each read their own, device.stream_key): the cache entry
+    holds the host array itself, so a rebuilt array is never served the
+    old upload (lastz_tpu/search/device_hits.py:259-268)."""
+    per_stream = pt.__dict__.setdefault("_hitgen_res_dev", {})
+    sk = stream_key(device)
+    cached = per_stream.get(sk)
+    if cached is None or cached[0] is not pt.csr_resolve:
         words = np.ascontiguousarray(pt.csr_resolve).astype(np.uint32)
-        cached = (pt.csr_resolve, device,
-                  torch.from_numpy(words.view(np.int32)).to(device))
-        pt._hitgen_res_dev = cached
-    return cached[2]
+        cached = per_stream[sk] = (
+            pt.csr_resolve, torch.from_numpy(words.view(np.int32)).to(device))
+    return cached[1]
 
 
 def device_search(engine, device, start: int = 0, end: int = 0):
@@ -116,7 +118,7 @@ def device_search(engine, device, start: int = 0, end: int = 0):
                             pt=engine.pt)
         if state is None:
             return None
-        device_search.runs += 1
+        build.count(device_search, "runs")
         K = state["subsmall"].shape[0]
         q_codes = engine.char_to_bits[
             engine.seq2[start:end]].astype(np.int8)

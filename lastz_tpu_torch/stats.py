@@ -45,6 +45,23 @@ class RunStats:
         """Context manager accumulating wall time into a bucket."""
         return _Timer(self, bucket)
 
+    def merge(self, other: "RunStats") -> None:
+        """Fold a farm worker's collector into this one (additive
+        counters and timers; per-job constants keep self's value)."""
+        for f in ("query_length", "num_queries", "words_in_queries",
+                  "raw_seed_hits", "hash_dropped_hits",
+                  "ungapped_extensions", "hsps", "anchors_after_chain",
+                  "gapped_anchors", "gapped_device", "gapped_host",
+                  "alignments"):
+            setattr(self, f, getattr(self, f) + getattr(other, f))
+        for k, v in other.timers.items():
+            self.timers[k] = self.timers.get(k, 0.0) + v
+        for k, v in other.extra.items():
+            if isinstance(v, (int, float)):
+                self.extra[k] = self.extra.get(k, 0) + v
+            else:
+                self.extra.setdefault(k, v)
+
     def show(self, f=None):
         f = f or sys.stderr
         w = f.write
@@ -99,9 +116,9 @@ class _Timer:
 
 
 # One active collector per pipeline run.  `current` is thread-local
-# so pipelines run in concurrent threads each accumulate into their
-# own RunStats; threads that never called reset() (helper threads
-# inside kernels) fall back to the main thread's collector.
+# so concurrent farm-out workers (parallel/farm.py) each accumulate
+# into their own RunStats; threads that never called reset() (helper
+# threads inside kernels) fall back to the main thread's collector.
 import threading as _threading
 
 _MAIN = RunStats()

@@ -669,3 +669,49 @@ def test_cuda_device_table_matches_host(pattern, step):
     assert np.array_equal(got.csr_start, host.csr_start)
     assert np.array_equal(got.csr_pos.astype(np.int64),
                           host.csr_pos.astype(np.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [[], ["--twins=20..200"]],
+                         ids=["default", "twins"])
+def test_cuda_farm_matches_serial(tmp_path, extra):
+    """The query farm-out on the card, two workers on card 0
+    (chip_smoke.py's farm phase at a small size): the serial run's
+    output; each worker launched the main path's four kernels (the
+    batched search's K2 with --twins) on one non-default stream of its
+    own; the device-built table never fetched, no upload made twice on
+    a stream."""
+    from chip_smoke import (FARM_SLOTS, MAIN_ENTRIES, entry_streams,
+                            farm_report, farm_run, require_in_place,
+                            require_single_uploads, table_watch,
+                            upload_watch, write_queries)
+    _card()
+    rng = np.random.default_rng(17)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    t = alpha[rng.integers(0, 4, 300_000)]
+    parts = []
+    for a in rng.integers(0, len(t) - 3000, 6):  # alignments the card
+        seg = t[a:a + 3000].copy()                # extends to their end
+        mut = rng.random(len(seg)) < 0.12
+        seg[mut] = alpha[rng.integers(0, 4, mut.sum())]
+        parts.append(seg)
+    tp, qp = str(tmp_path / "t.fa"), str(tmp_path / "q.fa")
+    write_queries(tp, t, 1)
+    write_queries(qp, np.concatenate(parts), 6)
+    argv = [tp, qp, *extra]
+    out = []
+    for slots in (None, FARM_SLOTS):
+        out.append(str(tmp_path / f"{len(slots or [])}.lav"))
+        _, launches, st, _, (_, seen, made, built) = farm_run(
+            argv, out[-1], slots, entry_streams(), upload_watch(),
+            table_watch())
+        if not extra:  # the batched search reads the table's host copy
+            require_in_place(built, "farm test")
+        require_single_uploads(made, "farm test")
+        assert st.gapped_device > 0
+    # the batched search (--twins) has no chain walk
+    farm_report(seen, len(FARM_SLOTS), "farm test",
+                need=("xdrop_scan",) if extra else tuple(MAIN_ENTRIES))
+    with open(out[0]) as a, open(out[1]) as b:
+        serial = a.read()
+        assert serial == b.read() and serial.count("a {") >= 6

@@ -4,6 +4,7 @@ the port's CLI, run with both `jax` and `lastz_tpu` blocked, writes
 output byte-equal to lastz_tpu's host path on several option sets."""
 
 import ast
+import contextlib
 import io
 import os
 import subprocess
@@ -12,8 +13,8 @@ import sys
 import numpy as np
 import pytest
 
-from lastz_tpu.cli import parse_options
-from lastz_tpu.pipeline import Pipeline as HostPipeline
+from lastz_tpu.cli import main as host_main
+from lastz_tpu.core import scoring as host_scoring
 
 from test_device_path import _make_pair
 
@@ -49,6 +50,9 @@ def _imports_of_lastz_tpu(path):
 def test_no_module_of_the_port_imports_lastz_tpu():
     sources = _port_sources()
     assert len(sources) > 40  # the host layers are the port's own
+    for mod in ("farm", "distributed"):  # the query tiers too
+        assert os.path.join(ROOT, "lastz_tpu_torch", "parallel",
+                            f"{mod}.py") in sources
     bad = [b for p in sources for b in _imports_of_lastz_tpu(p)]
     assert bad == []
 
@@ -134,6 +138,56 @@ def quantum_pair(tmp_path):
     return t, f"{qdna}[quantum]"
 
 
+def multi_query_pair(tmp_path, n=1500, seed=5, pieces=4):
+    """_make_pair's pair with its query cut into `pieces` records of one
+    FASTA (the last one reverse-complemented, so that both strands
+    carry alignments)."""
+    t, q = _make_pair(tmp_path, n=n, seed=seed)
+    with open(q) as f:
+        seq = "".join(f.read().split("\n")[1:])
+    cut = np.linspace(0, len(seq), pieces + 1).astype(int)
+    recs = [seq[a:b] for a, b in zip(cut[:-1], cut[1:])]
+    recs[-1] = recs[-1][::-1].translate(str.maketrans("ACGT", "TGCA"))
+    with open(q, "w") as f:
+        for i, r in enumerate(recs):
+            f.write(f">q{i}\n{r}\n")
+    return t, q
+
+
+def repeated_query_pair(tmp_path):
+    """_make_pair's pair with four overlapping pieces of its query as
+    four queries: with --masking=3 the target's census masks the
+    region they share before the fourth query runs."""
+    t, q = _make_pair(tmp_path, n=1500, seed=5)
+    with open(q) as f:
+        seq = "".join(f.read().split("\n")[1:])
+    with open(q, "w") as f:
+        for i in range(4):
+            f.write(f">q{i}\n{seq[50 * i:800 + 50 * i]}\n")
+    return t, q
+
+
+def self_pair(tmp_path):
+    """--self: the target alone (a repeat-rich one, so that it aligns
+    off its diagonal)."""
+    t, _ = _make_pair(tmp_path, n=1500, seed=5)
+    with open(t) as f:
+        seq = "".join(f.read().split("\n")[1:])
+    with open(t, "w") as f:
+        f.write(">t\n" + seq + seq[200:900] + seq + "\n")
+    return t, None
+
+
+def hsx_pair(tmp_path):
+    """The target as an hsx index written by the port's tools/hsx.py,
+    named by its contig."""
+    from lastz_tpu_torch.tools.hsx import build_hsx
+    t, q = _make_pair(tmp_path, n=1500, seed=5)
+    hsx = str(tmp_path / "t.hsx")
+    build_hsx([t], hsx)
+    return f"{hsx}/t", q
+
+
 # name: (options, pair); the default LAV run is
 # test_torch_pipeline.py::test_runs_with_jax_blocked
 OPTION_SETS = {
@@ -150,12 +204,39 @@ OPTION_SETS = {
     # x-drop (ops/xdrop_batch.batch_xdrop_device)
     "twins": (["--ydrop=3000", "--twins=20..200"], None),
     "quantum": ([f"Q={QSCORES}"], quantum_pair),
+    # the output formats and flows of the copied host surface
+    **{f: (["--ydrop=3000", f"--format={f}"], None)
+       for f in ("axt", "sam", "cigar", "paf", "general", "differences",
+                 "rdotplot")},
+    "hitsonly": (["W=8", "T=0", "--nogfextend", "--nogapped"], None),
+    "self": (["--ydrop=3000", "--self"], self_pair),
+    "census": (["--ydrop=3000", "--masking=3", "--census"],
+               repeated_query_pair),
+    "inferonly": (["--inferonly", "--scoretype=double"], None),
+    "multiquery": (["--ydrop=3000"], multi_query_pair),
+    "hsx": (["--ydrop=3000"], hsx_pair),
 }
 
 
+# what shows that a set's output holds an alignment (LAV's "a {" where
+# the set is not named)
+MARKERS = {"maf": "\ns ", "axt": "\n0 t ", "sam": "\nq\t0\tt\t",
+           "cigar": "cigar: q ", "paf": "\tAS:i:", "general": "\tt\t+\t",
+           "differences": "\tq\t", "rdotplot": "\nNA\tNA\n",
+           "inferonly": "gap_extend_penalty",
+           "multiquery": '">q3 (reverse complement)"'}
+
+
 def _host(args):
+    """lastz_tpu's host run of the CLI's arguments, its standard output
+    (scoring inference writes there)."""
     buf = io.StringIO()
-    HostPipeline(parse_options(args), buf).run()
+    saved = host_scoring.SCORE_TYPE  # --scoretype=double sets it
+    try:
+        with contextlib.redirect_stdout(buf):
+            assert host_main(args) == 0
+    finally:
+        host_scoring.set_score_type(saved)
     return buf.getvalue()
 
 
@@ -175,7 +256,7 @@ def run_blocked(args):
 def test_runs_with_jax_and_lastz_tpu_blocked(tmp_path, opts):
     options, pair = OPTION_SETS[opts]
     t, q = (pair or (lambda p: _make_pair(p, n=1500, seed=5)))(tmp_path)
-    args = [t, q, *options]
+    args = [t, *([q] if q else []), *options]
     if opts == "capsule":
         # both packages write a capsule of t, byte for byte the same;
         # then both search q against the port's capsule
@@ -188,6 +269,6 @@ def test_runs_with_jax_and_lastz_tpu_blocked(tmp_path, opts):
         args = [f"--targetcapsule={caps[0]}", q, *options]
     host = _host(args)
     assert run_blocked(args) == host
-    assert "a {" in host or "s " in host
+    assert MARKERS.get(opts, "a {") in host
     if opts == "tweener":  # the inner search added an alignment
         assert host.count("a {") > _host(args[:-1]).count("a {")
