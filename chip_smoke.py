@@ -69,8 +69,10 @@ Phases, one line each (any failure exits nonzero):
                through its wrapper and alone (an event pair around the
                kernel)
   batched     --twins and a quantum query on the pair's target (the
-               queries cut to TWINS_BP and QUANTUM_BP), every counter
-               reset before each: LAV byte-equal to lastz_tpu's CLI, K2
+               queries cut to TWINS_BP and QUANTUM_BP; the quantum
+               query written by lastz_tpu_torch.tools.any_to_qdna),
+               every counter reset before each: LAV byte-equal to
+               lastz_tpu's CLI, K2
                launched through the batched search's device branch,
                neither host x-drop scan called, no rewind to the scalar
                search; then the wide path, batch_xdrop_device on a
@@ -93,6 +95,26 @@ Phases, one line each (any failure exits nonzero):
                query cut into TWINS_FARM_QUERIES queries, equal to its
                serial run, with K2 through the batched search's device
                branch on both workers' streams
+  shard        the target-sharded tier (search/sharded_mesh.py,
+               align/ydrop_sharded.py, parallel/mesh.py) on SHARDS
+               shards, SHARD_SLOTS = ["cuda:0"] * 4 (one card a shard
+               where there are four), every counter reset before each
+               path: (a) the pair through the port's CLI with
+               LASTZ_TORCH_SHARDS=4, unsharded and sharded in turns,
+               each LAV byte-equal to phase 3's lastz_tpu LAV, K2 on
+               every shard (its device ms a launch), no "seed host
+               searches"; (b) the INDEX_BP target in 4 shards against a
+               SHARD_QUERY_BP mutated query cut from it (12of19, no
+               transition): the sharded search's hits equal the port's
+               unsharded device search's, with the index build by
+               shard and each slot's bytes against the whole target's;
+               (c) ShardedTargetYDrop on (a)'s first mega batch of
+               anchors, lane for lane equal to DeviceYDrop, K1's mega
+               launch and the walk launched; (d) parallel/mesh.py's
+               step (MESH_SHAPE, 256 lanes x 128 rows) on 4 slots, on
+               1 and on CPU tensors, every output equal, K1's chunk
+               entry and K2 launched; (e) with four cards, (a) one
+               shard a card, no card holding the whole target
   4 extend     ops/ydrop_pallas.py's own path, with every counter
                reset before it: prepare_anchor_batch, then
                ydrop_extend_batch (K3) and ydrop_band_batch (K3b) on
@@ -1800,8 +1822,9 @@ def csr_uploads():
 def phase_main(card, pair, parent=None):
     """Returns each kernel's launch count in the port's main-path run,
     the mean device ms a launch there of its kernels, the walk's summed
-    chain floor there, and the arguments of its first chain-walk
-    launch.  With `parent` (a checkout of an older commit), its port
+    chain floor there, the arguments of its first chain-walk launch,
+    the mega launches' report and lastz_tpu's LAV of the pair (its
+    files' directory as TDIR).  With `parent` (a checkout of an older commit), its port
     also runs alone on the pair and its timers are printed beside
     this one's."""
     from lastz_tpu_torch import device
@@ -1849,6 +1872,9 @@ def phase_main(card, pair, parent=None):
             lav_bytes=[len(a), len(b)], lav_equal=a == b, card=card)
         if a != b:
             raise AssertionError("port LAV differs from lastz_tpu host LAV")
+        # the reference LAV of the pair, its directory as TDIR (the LAV
+        # names the files it read)
+        host_lav = b.replace(tdir.encode(), TDIR)
         alone_out = os.path.join(tdir, "alone.lav")
         alone_s, alone_t = run_alone(tdir, argv, alone_out)
         c = read_bytes(alone_out)
@@ -1875,7 +1901,7 @@ def phase_main(card, pair, parent=None):
     chain_launch = probes["chain_launch"]
     if not chain_launch:
         raise AssertionError("main path: no chain walk was captured")
-    return launches, main_ms, walk_floor, chain_launch[0], mega_main
+    return launches, main_ms, walk_floor, chain_launch[0], mega_main, host_lav
 
 
 # the seed modes beside the main path: (name, options, chain-walk mode)
@@ -1975,13 +2001,14 @@ WIDE_PATH = dict(K=40, bp=1_000_000, hits=1 << 18, x_drop=400)
 
 def write_qdna(tdir, seq):
     """seq (ACGT bytes) as a quantum DNA file, A, C, G and T as the
-    bytes 1 to 4 of QSCORES' alphabet, written by lastz_tpu's
+    bytes 1 to 4 of QSCORES' alphabet, written by the port's
     any_to_qdna in a child process; returns the query's specifier."""
     code = np.zeros(256, np.uint8)
     code[list(b"ACGT")] = [1, 2, 3, 4]
     path = os.path.join(tdir, "q.qdna")
     with open(path, "wb") as f:
-        subprocess.run([sys.executable, "-m", "lastz_tpu.tools.any_to_qdna",
+        subprocess.run([sys.executable, "-m",
+                        "lastz_tpu_torch.tools.any_to_qdna",
                         "--striplinebreaks"], input=code[seq].tobytes(),
                        stdout=f, check=True, cwd=ROOT)
     return f"{path}[quantum]"
@@ -2456,6 +2483,7 @@ def phase_index(card, pair):
             raise AssertionError(f"index {name}: device build differs from "
                                  f"the host build")
         del got, host
+    return big
 
 
 def make_index_target():
@@ -2512,6 +2540,377 @@ def phase_extend(card, pair, refs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the shard phase
+# ---------------------------------------------------------------------------
+
+# the target-sharded tier: 4 shards, on one card each where there are
+# four, else all on card 0; (b)'s query cut from the INDEX_BP target,
+# a base in SHARD_QUERY_INDEL deleted and one inserted, and
+# SHARD_QUERY_MUT of them substituted, searched with 12of19 and no
+# transition (one probe a position, so the host's replay of every
+# candidate stays within the phase's time); (d)'s mesh step on the
+# pair's target with MESH_SHAPE's query blocks and anchors
+SHARDS = 4
+# the directory of the pair's files in a reference LAV
+TDIR = b"<tdir>"
+SHARD_QUERY_BP = 2_000_000
+SHARD_QUERY_MUT = 0.15
+SHARD_QUERY_INDEL = 0.01
+MESH_SHAPE = dict(q_per_shard=16, qlen=4096, anchors_per_shard=64)
+
+
+def shard_slots(n=SHARDS):
+    """One card a shard where there are n, else all on card 0."""
+    import torch
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{d}" for d in range(n)]
+    return ["cuda:0"] * n
+
+
+@contextlib.contextmanager
+def k2_by_shard():
+    """Every K2 call of the sharded search's per-shard program inside
+    the block, by the (device, codes pointer) it read; yields the
+    Counter."""
+    from lastz_tpu_torch.search import sharded_mesh as tsm
+    seen = Counter()
+    own = tsm.xdrop_scan
+
+    def call(seq1p, *a, **kw):
+        seen[(str(seq1p.device), seq1p.data_ptr())] += 1
+        return own(seq1p, *a, **kw)
+    tsm.xdrop_scan = call
+    try:
+        yield seen
+    finally:
+        tsm.xdrop_scan = own
+
+
+def shard_launches(index, seen, what):
+    """K2's calls by shard of `index` (k2_by_shard's Counter); every
+    shard must have launched."""
+    got = [seen[(str(c.device), c.data_ptr())] for c in index.codes_d]
+    if min(got) <= 0 or sum(got) != sum(seen.values()):
+        raise AssertionError(f"{what}: K2 did not run on every shard: "
+                             f"{got} of {sum(seen.values())}")
+    return got
+
+
+@contextlib.contextmanager
+def ydrop_args():
+    """The arguments of every whole-target DeviceYDrop made inside the
+    block (yielded list)."""
+    from lastz_tpu_torch.align import ydrop_device
+    got = []
+    own = ydrop_device.DeviceYDrop.__init__
+
+    def init(self, *a, **kw):
+        if type(self) is ydrop_device.DeviceYDrop:
+            got.append(a)
+        own(self, *a, **kw)
+    ydrop_device.DeviceYDrop.__init__ = init
+    try:
+        yield got
+    finally:
+        ydrop_device.DeviceYDrop.__init__ = own
+
+
+def index_bytes(index):
+    """Target-derived bytes each shard's slot holds (its codes and
+    CSR)."""
+    return [int(index.codes_d[d].nbytes + index.csr_pos_d[d].nbytes
+                + index.csr_start_d[d].nbytes)
+            for d in range(index.n_shards)]
+
+
+def whole_target_bytes(index):
+    """The same bytes for the whole target on one device: its codes,
+    every indexed position (the shards' together) and the word
+    starts."""
+    entries = sum(int(c[-1]) for c in index.csr_start_d)
+    return int(index.n + 4 * entries + index.csr_start_d[0].nbytes)
+
+
+def shard_cli(card, pair, host_lav):
+    """(a): the pair through the port's CLI with LASTZ_TORCH_SHARDS and
+    SHARD_SLOTS, unsharded and sharded in turns, each LAV host_lav's
+    (its files' directory TDIR); returns the launch counts of the first
+    sharded run, the DeviceYDrop arguments of its gapped stage and its
+    index."""
+    import torch
+    from lastz_tpu_torch.search import sharded_mesh as tsm
+    slots = shard_slots()
+    with tempfile.TemporaryDirectory() as tdir:
+        host_lav = host_lav.replace(TDIR, tdir.encode())
+        tp, qp, _, _ = write_pair(tdir, pair)
+        argv = [tp, qp, "--stats"]
+        first = None
+        for turn, who in enumerate(("unsharded", "sharded", "unsharded")):
+            path = os.path.join(tdir, f"{who}{turn}.lav")
+            tsm._INDEX_CACHE.clear()
+            if who == "sharded":
+                os.environ["LASTZ_TORCH_SHARDS"] = str(SHARDS)
+                tsm.SHARD_SLOTS = slots
+            try:
+                wall, launches, st, seed_runs, (events, seen, yd) = \
+                    run_port(argv, path, timed_launches("xdrop_scan_launch"),
+                             k2_by_shard(), ydrop_args())
+            finally:
+                os.environ.pop("LASTZ_TORCH_SHARDS", None)
+                tsm.SHARD_SLOTS = None
+            lav = read_bytes(path)
+            timers = {k: round(v, 3) for k, v in st.timers.items()}
+            say("shard", run=f"cli {who}", turn=turn, shards=SHARDS,
+                slots=slots, wall_s=wall, launches=launches,
+                lav_equal=lav == host_lav, timers=timers, extra=st.extra,
+                card=card)
+            if lav != host_lav:
+                raise AssertionError(f"shard cli {who}: LAV differs from "
+                                     f"lastz_tpu's host LAV")
+            if st.extra.get("seed host searches"):
+                raise AssertionError(f"shard cli {who}: seed host searches")
+            if who == "unsharded":
+                continue
+            index = next(iter(tsm._INDEX_CACHE.values()))
+            by_shard = shard_launches(index, seen, "shard cli")
+            if seed_runs or "shard search" not in st.timers:
+                raise AssertionError("shard cli: the seed stage did not go "
+                                     "through the sharded search only")
+            require_launched(launches, tuple(MAIN_ENTRIES)[:3])
+            k2 = launch_ms(events)
+            say("shard", run="cli sharded K2", launches_by_shard=by_shard,
+                k2_ms_per_launch=k2["mean_ms"], k2_median_ms=k2["median_ms"],
+                k2_total_ms=k2["total_ms"], shard_search_s=timers.get(
+                    "shard search"),
+                shard_index_build_s=timers.get("shard index build"),
+                card=card)
+            if first is None:
+                first = (launches, yd[0], index)
+            if len(set(slots)) == SHARDS:
+                # (e): one shard a card, none holding the whole target
+                mine = index_bytes(index)
+                whole = whole_target_bytes(index)
+                say("shard", run="one shard a card", index_bytes=mine,
+                    whole_target_bytes=whole, memory_allocated=[
+                        torch.cuda.memory_allocated(d)
+                        for d in range(SHARDS)], card=card)
+                if max(mine) >= whole:
+                    raise AssertionError("shard cli: a card holds as much "
+                                         "as the whole target")
+    return first
+
+
+def shard_index_target(card, big, query_bp=SHARD_QUERY_BP):
+    """(b): the INDEX_BP target in SHARDS shards against a mutated
+    SHARD_QUERY_BP query cut from it: the sharded search's hits against
+    the port's unsharded device search on the whole target; returns the
+    sharded search's launches and K2's calls by shard."""
+    import torch
+    from lastz_tpu_torch.config import GFEX_XDROP, ScoreThreshold
+    from lastz_tpu_torch.core.encoding import UPPER_NUC_TO_BITS
+    from lastz_tpu_torch.core.scoring import new_dna_score_set
+    from lastz_tpu_torch.core.seeds import SEED_12OF19, parse_seed
+    from lastz_tpu_torch.index import sharded as tsharded
+    from lastz_tpu_torch.index.postable import (
+        build_seed_position_table_device)
+    from lastz_tpu_torch.search import device_hits
+    from lastz_tpu_torch.search import sharded_mesh as tsm
+    from lastz_tpu_torch.search.engine import (HitProcessorParams,
+                                               SeedSearchEngine)
+    import lastz_tpu_torch.stats as tstats
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    at = int(rng.integers(0, len(big) - query_bp))
+    q = big[at: at + query_bp][rng.random(query_bp) >= SHARD_QUERY_INDEL]
+    mut = rng.random(len(q)) < SHARD_QUERY_MUT
+    q[mut] = alpha[rng.integers(0, 4, mut.sum())]
+    ins = np.nonzero(rng.random(len(q)) < SHARD_QUERY_INDEL)[0]
+    q = np.insert(q, ins, alpha[rng.integers(0, 4, len(ins))])
+    seed = parse_seed(SEED_12OF19, with_trans=0)
+    sc = new_dna_score_set()
+    hp = HitProcessorParams(gf_extend=GFEX_XDROP, scoring=sc, x_drop=910,
+                            hsp_threshold=ScoreThreshold("S", 3000))
+
+    def engine(pt, hits, device=None):
+        return SeedSearchEngine(
+            big, pt, q, seed, UPPER_NUC_TO_BITS, hp,
+            lambda p1, p2, ln, s: hits.append((p1, p2, ln, s)) or ln,
+            device=device)
+
+    pt = build_seed_position_table_device(big, 0, 0, UPPER_NUC_TO_BITS,
+                                          seed, device=dev)
+    torch.cuda.synchronize()
+    whole = []
+    tstats.reset()
+    device_hits.device_search.runs = 0
+    t0 = time.monotonic()
+    engine(pt, whole, dev).search(0, len(q))
+    torch.cuda.synchronize()
+    whole_s = time.monotonic() - t0
+    if not device_hits.device_search.runs or \
+            tstats.current.extra.get("seed host searches"):
+        raise AssertionError("shard index target: the unsharded search did "
+                             "not run on the device")
+    builds = []
+    own = tsharded.build_seed_position_table
+
+    def timed_build(*a, **kw):
+        t = time.monotonic()
+        got = own(*a, **kw)
+        builds.append(time.monotonic() - t)
+        return got
+    tsharded.build_seed_position_table = timed_build
+    try:
+        t0 = time.monotonic()
+        index = tsm.MeshShardedIndex(big, UPPER_NUC_TO_BITS, seed, 1, SHARDS,
+                                     sc.sub, slots=shard_slots())
+        torch.cuda.synchronize()
+        index_s = time.monotonic() - t0
+    finally:
+        tsharded.build_seed_position_table = own
+    sharded = []
+    reset_counts()
+    tstats.reset()
+    with k2_by_shard() as seen, \
+            timed_launches("xdrop_scan_launch") as events:
+        t0 = time.monotonic()
+        got = tsm.sharded_mesh_search(engine(pt, sharded), index)
+        torch.cuda.synchronize()
+        sharded_s = time.monotonic() - t0
+    launches = read_counts()
+    by_shard = shard_launches(index, seen, "shard index target")
+    k2 = launch_ms(events)
+    mine = index_bytes(index)
+    whole_b = whole_target_bytes(index)
+    say("shard", run="index target", target_bp=len(big), query_bp=len(q),
+        seed="12of19, no transition", hits=[len(whole), len(sharded)],
+        hits_equal=sharded == whole, unsharded_search_s=whole_s,
+        sharded_search_s=sharded_s, index_build_s=index_s,
+        index_build_s_by_shard=builds, shard_search_s=tstats.current.timers
+        .get("shard search"), raw_seed_hits=tstats.current.raw_seed_hits,
+        launches=launches, launches_by_shard=by_shard,
+        k2_ms_per_launch=k2["mean_ms"], k2_total_ms=k2["total_ms"],
+        per_shard_bytes=mine,
+        per_device_target_bytes=index.per_device_target_bytes,
+        whole_target_bytes=whole_b, card=card)
+    if got is None or sharded != whole or len(whole) == 0:
+        raise AssertionError("shard index target: the sharded hits differ "
+                             "from the unsharded device search's")
+    if max(mine) >= whole_b:
+        raise AssertionError("shard index target: a slot holds as much as "
+                             "the whole target")
+    require_launched(launches, ("xdrop_scan",))
+    return launches
+
+
+def shard_gapped(card, args, index):
+    """(c): ShardedTargetYDrop on the first mega batch of the CLI's
+    gapped stage (the DeviceYDrop arguments `args`), lane for lane
+    against DeviceYDrop on the whole target; returns its launches."""
+    import torch
+    from lastz_tpu_torch.align.ydrop_device import DeviceYDrop
+    from lastz_tpu_torch.align.ydrop_sharded import ShardedTargetYDrop
+    whole = DeviceYDrop(*args)
+    shard = ShardedTargetYDrop(index, *args)
+    if not (whole.ok and shard.ok):
+        raise AssertionError("shard gapped: a y-drop was refused")
+    n = min(whole.batch, len(args[6]))
+    t0 = time.monotonic()
+    whole.result_for(0)
+    torch.cuda.synchronize()
+    whole_s = time.monotonic() - t0
+    reset_counts()
+    t0 = time.monotonic()
+    shard.result_for(0)
+    torch.cuda.synchronize()
+    shard_s = time.monotonic() - t0
+    launches = read_counts()
+    differ = [k for k in range(n)
+              for side in ("fwd", "rev")
+              for key in whole.result_for(k)[side]
+              if whole.result_for(k)[side][key]
+              != shard.result_for(k)[side][key]]
+    differ += [k for k in range(n) if whole._ops[k] != shard._ops[k]]
+    rows = [int(whole.result_for(k)[s]["rows_used"]) for k in range(n)
+            for s in ("fwd", "rev")]
+    say("shard", run="gapped", anchors=n, lanes=2 * n, launches=launches,
+        max_rows=max(rows), whole_s=whole_s, sharded_s=shard_s,
+        lanes_equal=not differ, card=card)
+    if differ:
+        raise AssertionError(f"shard gapped: anchors {sorted(set(differ))} "
+                             f"differ from the whole-target DeviceYDrop")
+    require_launched(launches, ("ydrop_mega", "ydrop_traceback"))
+    return launches
+
+
+def shard_mesh_step(card, pair, shape=MESH_SHAPE):
+    """(d): parallel/mesh.py's step on SHARDS slots, on one slot and on
+    CPU tensors, every output equal; returns the SHARDS-slot run's
+    launches."""
+    import torch
+    from lastz_tpu_torch.core.scoring import new_dna_score_set
+    from lastz_tpu_torch.core.seeds import SEED_12OF19, parse_seed
+    from lastz_tpu_torch.parallel import mesh as tmesh
+    t, q, _ = pair
+    nq = SHARDS * shape["q_per_shard"]
+    queries = [q[i * shape["qlen"]: (i + 1) * shape["qlen"]]
+               for i in range(nq)]
+    seed = parse_seed(SEED_12OF19, with_trans=0)
+    t0 = time.monotonic()
+    inp = tmesh.build_mesh_inputs(t, queries, seed, new_dna_score_set(),
+                                  SHARDS, **shape)
+    build_s = time.monotonic() - t0
+    args = (inp["q_codes"], inp["t_codes"], inp["csr_start"], inp["sub4"],
+            inp["subsmall"], inp["anchors12"], inp["state"], inp["a_small"],
+            inp["b_small"])
+    outs = {}
+    walls = {}
+    launches = None
+    for who, slots in (("cuda x4", shard_slots()), ("cuda x1", ["cuda:0"]),
+                       ("cpu", ["cpu"])):
+        step = tmesh.make_sharded_pipeline(slots, seed, gap_e=inp["gap_e"],
+                                           gap_oe=inp["gap_oe"])
+        reset_counts()
+        t0 = time.monotonic()
+        got = step(*args)
+        torch.cuda.synchronize()
+        walls[who] = time.monotonic() - t0
+        if launches is None:
+            launches = read_counts()
+        outs[who] = [o.cpu() for o in got]
+    names = ["counts", "hsp_score", "ydrop_score", "end1", "end2", "census",
+             "total_hits"]
+    differ = [n for i, n in enumerate(names)
+              if not (torch.equal(outs["cuda x4"][i], outs["cpu"][i])
+                      and torch.equal(outs["cuda x1"][i], outs["cpu"][i]))]
+    say("shard", run="mesh step", slots=shard_slots(), anchors=int(
+        inp["anchors12"].shape[0]), lanes=256, rows=128, build_s=build_s,
+        walls=walls, launches=launches, total_hits=int(outs["cpu"][6]),
+        scored=int((outs["cpu"][2] > 0).sum()), equal=not differ, card=card)
+    if differ:
+        raise AssertionError(f"shard mesh step: {differ} differ between "
+                             f"slot counts or from the CPU")
+    if int(outs["cpu"][6]) <= 0 or not bool((outs["cpu"][2] > 0).any()):
+        raise AssertionError("shard mesh step: no hit or no y-drop score")
+    require_launched(launches, ("ydrop_chunk", "xdrop_scan"))
+    return launches
+
+
+def phase_shard(card, pair, host_lav, big):
+    """The target-sharded tier (see the module's docstring); returns the
+    launches of each of its paths, by path."""
+    t0 = time.monotonic()
+    cli_launches, args, index = shard_cli(card, pair, host_lav)
+    got = dict(cli=cli_launches)
+    got["index_target"] = shard_index_target(card, big)
+    got["gapped"] = shard_gapped(card, args, index)
+    got["mesh_step"] = shard_mesh_step(card, pair)
+    say("shard", wall_s=time.monotonic() - t0, card=card)
+    return got
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -2528,12 +2927,14 @@ def main(argv=None):
     say("pair", bp=[len(pair[0]), len(pair[1])], segments=len(pair[2]),
         make_s=round(time.monotonic() - t0, 3))
     rows, refs, chain_err = phase_kernels(card, pair)
-    phase_index(card, pair)
-    launches, main_ms, walk_floor, main_chain, mega_main = phase_main(
-        card, pair, args.parent)
+    big = phase_index(card, pair)
+    launches, main_ms, walk_floor, main_chain, mega_main, host_lav = \
+        phase_main(card, pair, args.parent)
     mode_launches, recover_chain = phase_modes(card, pair)
     batched_launches = phase_batched(card, pair)
     farm_launches = phase_farm(card, pair)
+    shard_paths = phase_shard(card, pair, host_lav, big)
+    del big
     rows.append(chain_row(card, chain_err, main_chain, recover_chain))
     launches.update({k: v for k, v in phase_extend(card, pair, refs).items()
                      if k in ("ydrop_wavefront", "ydrop_band")})
@@ -2569,6 +2970,11 @@ def main(argv=None):
         if name == "xdrop_scan":
             r["launches_by_batched_mode"] = {
                 k: v["xdrop_scan"] for k, v in batched_launches.items()}
+        # the shard phase's paths: the CLI under LASTZ_TORCH_SHARDS, the
+        # INDEX_BP target's sharded search, ShardedTargetYDrop and the
+        # mesh step (the chunk entry's launches in ydrop_chunk's row)
+        r["launches_by_shard_path"] = {k: v[name]
+                                       for k, v in shard_paths.items()}
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

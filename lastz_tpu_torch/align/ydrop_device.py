@@ -112,11 +112,27 @@ class DeviceYDrop:
         self._computed.update(idxs)
         return idxs
 
+    def _ensure_seqs(self):
+        if self._v1c is None:
+            self._v1c = upload_codes(self.v1, self.code_map, self.device)
+            self._v2c = upload_codes(self.v2, self.code_map, self.device)
+
+    def _target_args(self, A1, LO1, HI1, REV, row0, rows, max_blocks):
+        """Target codes and per-lane seq1 coordinates (A1, LO1, HI1) of
+        one mega launch whose lanes sit at DP row `row0` (the kernel
+        reads seq1 only inside rows [row0, row0 + max_blocks*rows) of
+        each lane's anchor).  Base class: the whole-target upload and
+        the coordinates as they are (align/ydrop_sharded.py remaps them
+        onto windows gathered from the shards)."""
+        del REV, row0, rows, max_blocks
+
+        def T(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return self._v1c, T(A1), T(LO1), T(HI1)
+
     def _compute_for(self, ix):
         dev = self.device
-        if self._v1c is None:
-            self._v1c = upload_codes(self.v1, self.code_map, dev)
-            self._v2c = upload_codes(self.v2, self.code_map, dev)
+        self._ensure_seqs()
         idxs = self._collect_batch(ix)
         B = self.batch
         lanes = self.lanes
@@ -148,13 +164,19 @@ class DeviceYDrop:
                   alpha=self.subsmall.shape[0],
                   trim_to_peak=self.trim_to_peak, tb_cap=self.tb_cap)
         subsmall = T(self.subsmall)
-        lane_args = [T(a) for a in (A1, A2, LO1, HI1, LO2, HI2, REV, M, N)]
+        # the target and its lanes' coordinates come from the hook, the
+        # first launch's and every continuation's
+        v1c, A1t, LO1t, HI1t = self._target_args(
+            A1, LO1, HI1, REV, np.zeros(2 * B, np.int64), self.rows,
+            self.max_blocks)
+        lane_args = [A1t, T(A2), LO1t, HI1t, T(LO2), T(HI2), T(REV), T(M),
+                     T(N)]
 
         _x = _stats.current.extra
         t_launch = _stats.current.time("ydrop device")
         t_launch.__enter__()
         state, prev_off, packed, tb_all, row_lo, row_hi, col0 = ydrop_mega(
-            self._v1c, self._v2c, *lane_args, state,
+            v1c, self._v2c, *lane_args, state,
             T(np.zeros(2 * B, np.int32)), subsmall, with_tb=True, **kw)
         pk = packed.cpu().numpy()
         done1 = pk[3].astype(bool)
@@ -170,11 +192,18 @@ class DeviceYDrop:
             c_args = [a[sel] for a in lane_args]
             c_state = {k: v[sel] for k, v in state.items()}
             c_prev = prev_off[sel]
+            row_c = pk[0][undone].astype(np.int64)
             while blocks < self._MAX_CHUNKS:
+                # the target's coordinates again at the lanes' rows (the
+                # sharded subclass re-extracts its windows as they go)
+                v1c, c_args[0], c_args[2], c_args[3] = self._target_args(
+                    A1[undone], LO1[undone], HI1[undone], REV[undone],
+                    np.maximum(row_c - 1, 0), self.rows, self.max_blocks)
                 c_state, c_prev, c_packed, _, _, _, _ = ydrop_mega(
-                    self._v1c, self._v2c, *c_args, c_state, c_prev,
+                    v1c, self._v2c, *c_args, c_state, c_prev,
                     subsmall, with_tb=False, **kw)
                 cpk = c_packed.cpu().numpy()
+                row_c = cpk[0].astype(np.int64)
                 blocks += self.max_blocks
                 launches += 1
                 cont_lanes += len(undone)

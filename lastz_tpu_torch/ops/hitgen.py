@@ -76,11 +76,13 @@ def pair_counts(packed, valid, xors, csr_start):
 def expand_chunk(cum, total_pad: int):
     """Pair index of every hit slot in [0, total_pad): one count of
     pair starts plus a prefix sum (empty pairs collapse onto the next
-    start, so the sum picks the containing pair)."""
-    starts = cum[:-1]
-    starts = starts[starts < total_pad]
-    seg = torch.bincount(starts, minlength=total_pad)
-    return torch.cumsum(seg, 0) - 1
+    start, so the sum picks the containing pair).  Starts past the
+    slots land in a spare slot that is dropped, so nothing is read on
+    the host (hitgen.py:117's scatter-add with mode="drop")."""
+    starts = torch.clamp(cum[:-1], max=total_pad)
+    seg = torch.zeros(total_pad + 1, dtype=starts.dtype, device=cum.device)
+    seg.scatter_add_(0, starts, torch.ones_like(starts))
+    return torch.cumsum(seg[:total_pad], 0) - 1
 
 
 # ---------------------------------------------------------------------------

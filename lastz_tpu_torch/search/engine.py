@@ -26,6 +26,7 @@ the source of truth and the oracle for its tests.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -143,6 +144,15 @@ class SeedSearchEngine:
     # -- main loop --------------------------------------------------------
 
     def search(self, start: int = 0, end: int = 0) -> int:
+        n_shards = int(os.environ.get("LASTZ_TORCH_SHARDS", "0"))
+        if n_shards > 1:
+            # interval-sharded search (targets past one device's
+            # memory): the index shards live one a device slot;
+            # configurations it declines take the tiers below
+            from .sharded_mesh import mesh_search_via_env
+            r = mesh_search_via_env(self, n_shards, start, end)
+            if r is not None:
+                return r
         if self.device is not None:
             # the device search (search/device_hits.py); configurations
             # its supported() gate declines take the host tiers below,

@@ -715,3 +715,113 @@ def test_cuda_farm_matches_serial(tmp_path, extra):
     with open(out[0]) as a, open(out[1]) as b:
         serial = a.read()
         assert serial == b.read() and serial.count("a {") >= 6
+
+
+def _index_like_target(n, seed):
+    """Random ACGT with lowercase and N runs (make_index_target's recipe
+    at n bases)."""
+    rng = np.random.default_rng(seed)
+    t = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].copy()
+    for a, m in zip(rng.integers(0, n - 2000, n // 10_000),
+                    rng.integers(100, 1500, n // 10_000)):
+        t[a: a + m] |= 0x20
+    for a, m in zip(rng.integers(0, n - 600, n // 100_000 + 1),
+                    rng.integers(10, 500, n // 100_000 + 1)):
+        t[a: a + m] = ord("N")
+    return t
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_search_matches_device_search():
+    """chip_smoke.py's shard phase (b) at a small size: the sharded
+    search on four shards of card 0 (K2 on every shard) against the
+    port's unsharded device search, hit for hit."""
+    from chip_smoke import shard_index_target
+    _card()
+    launches = shard_index_target("test", _index_like_target(400_000, 2),
+                                  query_bp=60_000)
+    assert launches["xdrop_scan"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_ydrop_matches_whole(monkeypatch):
+    """Phase (c) at tests/test_ydrop_sharded.py's size: ShardedTargetYDrop
+    on four shards of card 0, lane for lane equal to DeviceYDrop, through
+    K1's mega launch (continuations included) and the walk."""
+    from chip_smoke import shard_gapped
+    from lastz_tpu_torch.align import ydrop_device as tydd
+    from lastz_tpu_torch.core.encoding import UPPER_NUC_TO_BITS
+    from lastz_tpu_torch.core.seeds import SEED_12OF19, parse_seed
+    from lastz_tpu_torch.search.sharded_mesh import MeshShardedIndex
+    dev = _card()
+    rng = np.random.default_rng(7)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    s1 = alpha[rng.integers(0, 4, 30000)]
+    s2m = s1[2000:9000].copy()
+    mut = rng.random(len(s2m)) < 0.10
+    s2m[mut] = alpha[rng.integers(0, 4, mut.sum())]
+    s2 = np.concatenate([alpha[rng.integers(0, 4, 400)], s2m,
+                         s1[13000:18000].copy(),
+                         alpha[rng.integers(0, 4, 600)]])
+    monkeypatch.setattr(tydd, "DEFAULT_ROWS", 64)
+    monkeypatch.setattr(tydd, "DEFAULT_BATCH", 8)
+    sc = new_dna_score_set()
+    index = MeshShardedIndex(s1, UPPER_NUC_TO_BITS,
+                             parse_seed(SEED_12OF19, with_trans=1), 1, 4,
+                             sc.sub, ext_halo=2048, slots=["cuda:0"] * 4)
+    seg_infos = [(a1, a2, 0, len(s1), 0, len(s2)) for a1, a2 in
+                 [(2600, 1000), (5000, 3400), (8500, 6900), (14000, 8400),
+                  (16800, 11200)]]
+    launches = shard_gapped("test", (s1, s2, sc, 3400, False, 80 << 20,
+                                     seg_infos, dev), index)
+    assert launches["ydrop_mega"] > 1  # continuations re-extracted
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_step_matches_cpu():
+    """Phase (d) at a small size: the mesh step on four slots of card 0,
+    on one slot and on CPU tensors, every output equal, through K1's
+    chunk entry and K2."""
+    from chip_smoke import shard_mesh_step
+    _card()
+    rng = np.random.default_rng(4)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    t = alpha[rng.integers(0, 4, 200_000)]
+    q = t[50_000:70_000].copy()
+    mut = rng.random(len(q)) < 0.08
+    q[mut] = alpha[rng.integers(0, 4, mut.sum())]
+    launches = shard_mesh_step("test", (t, q, None),
+                               dict(q_per_shard=2, qlen=2048,
+                                    anchors_per_shard=8))
+    assert launches["ydrop_chunk"] == 4 and launches["xdrop_scan"] == 4
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_cli_matches_unsharded():
+    """Phase (a) at a small size: the port's CLI under
+    LASTZ_TORCH_SHARDS=4 on four slots of card 0, unsharded and sharded
+    in turns, the same LAV, K2 on every shard and no seed host search."""
+    import os
+    import tempfile
+    from chip_smoke import TDIR, run_port, shard_cli, write_pair
+    _card()
+    rng = np.random.default_rng(9)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    t = alpha[rng.integers(0, 4, 300_000)]
+    parts = []
+    for a in rng.integers(0, len(t) - 3000, 8):
+        seg = t[a:a + 3000].copy()
+        mut = rng.random(len(seg)) < 0.12
+        seg[mut] = alpha[rng.integers(0, 4, mut.sum())]
+        parts += [alpha[rng.integers(0, 4, 1000)], seg]
+    pair = (t, np.concatenate(parts), None)
+    with tempfile.TemporaryDirectory() as tdir:
+        tp, qp, _, _ = write_pair(tdir, pair)
+        out = os.path.join(tdir, "ref.lav")
+        run_port([tp, qp, "--stats"], out)
+        with open(out, "rb") as f:
+            ref = f.read().replace(tdir.encode(), TDIR)
+    assert ref.count(b"a {") >= 8
+    launches, args, index = shard_cli("test", pair, ref)
+    assert launches["xdrop_scan"] > 0 and index.n_shards == 4
+    assert len(args[6]) > 0  # the gapped stage's anchors

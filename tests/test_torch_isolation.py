@@ -50,9 +50,13 @@ def _imports_of_lastz_tpu(path):
 def test_no_module_of_the_port_imports_lastz_tpu():
     sources = _port_sources()
     assert len(sources) > 40  # the host layers are the port's own
-    for mod in ("farm", "distributed"):  # the query tiers too
-        assert os.path.join(ROOT, "lastz_tpu_torch", "parallel",
-                            f"{mod}.py") in sources
+    for mod in ("parallel/farm", "parallel/distributed",  # query tiers
+                "parallel/mesh", "index/sharded", "search/sharded_mesh",
+                "align/ydrop_sharded",  # the target-sharded tier
+                "tools/any_to_qdna", "tools/maf_sort", "tools/lav_sort",
+                "tools/tabular_to_maf", "tools/pick_from_fasta_hsx"):
+        assert os.path.join(ROOT, "lastz_tpu_torch",
+                            *f"{mod}.py".split("/")) in sources
     bad = [b for p in sources for b in _imports_of_lastz_tpu(p)]
     assert bad == []
 
@@ -123,15 +127,16 @@ def _tweener_pair(tmp_path, seed=3):
 
 def quantum_pair(tmp_path):
     """_make_pair's small pair with the query as quantum DNA: A, C, G
-    and T as the bytes 1 to 4 of QSCORES' alphabet, written by
-    lastz_tpu's any_to_qdna.  Returns the target and the query's
+    and T as the bytes 1 to 4 of QSCORES' alphabet, written by the
+    port's any_to_qdna.  Returns the target and the query's
     specifier."""
     t, q = _make_pair(tmp_path, n=1500, seed=5)
     with open(q) as f:
         seq = "".join(f.read().split("\n")[1:]).encode()
     qdna = tmp_path / "q.qdna"
     with open(qdna, "wb") as f:
-        subprocess.run([sys.executable, "-m", "lastz_tpu.tools.any_to_qdna",
+        subprocess.run([sys.executable, "-m",
+                        "lastz_tpu_torch.tools.any_to_qdna",
                         "--striplinebreaks"],
                        input=bytes(b"ACGT".index(c) + 1 for c in seq),
                        stdout=f, check=True, cwd=ROOT)
