@@ -1,0 +1,10 @@
+"""Kernels: K2, the x-drop scan (csrc/xdrop_scan.cu via
+ops/xdrop_cuda.py), as a share of its roofline, in %: the least time of
+the window's launches (portbench/work.py) over their time between CUDA
+event pairs around the C entry. Nothing to read without a launch."""
+
+
+def read(r):
+    k = r["launches"]
+    got = k.roofline("xdrop_scan_launch") if k is not None else None
+    return None if got is None else got["share"]
