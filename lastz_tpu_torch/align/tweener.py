@@ -14,6 +14,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import stats as _stats
 from ..config import ScoreThreshold
 from ..core.encoding import UPPER_NUC_TO_BITS
 from ..core.seeds import parse_seed
@@ -47,6 +48,14 @@ class _Active:
 
 
 def tweener_interpolate(pipeline, target, query, align_list):
+    """The outer alignments with the inner ones spliced in, under the
+    RunStats bucket and span "tweener" (the parent of the inner
+    searches' and extensions' spans)."""
+    with _stats.current.time("tweener"):
+        return _interpolate(pipeline, target, query, align_list)
+
+
+def _interpolate(pipeline, target, query, align_list):
     cfg = pipeline.cfg
     if not align_list:
         return align_list

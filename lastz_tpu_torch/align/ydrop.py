@@ -1663,7 +1663,7 @@ def gapped_extend(target, query, scoring, anchors: SegmentTable,
             if device is not None:
                 device.stats_host += 1
             from .. import stats as _stats
-            with _stats.current.time("ydrop host"):
+            with _stats.current.time("ydrop host", span=False):
                 s, start1, start2, stop1, stop2, script = \
                     aligner.ydrop_align(mp.pos1, mp.pos2)
         if device is not None:

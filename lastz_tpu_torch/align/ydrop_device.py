@@ -18,6 +18,11 @@ goes to the host engine for that anchor, and --stats counts it.
     only, compacted into a batch of just those lanes;
   * the traceback of every finished lane runs on the device in one
     call (csrc/ydrop_traceback.cu) and is decoded on the host.
+
+Stats: "ydrop setup target" (the target's codes and their upload),
+"ydrop device" (a batch's launches up to its traceback's fetch) and
+"ydrop wait" (each blocking fetch) are spans under the accept loop's
+"gapped"; the host engine's "ydrop host" is a bucket (align/ydrop.py).
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from ..device import upload_codes
 from ..ops.ydrop_cuda import traceback_mega, ydrop_mega
 from .edit_script import EditScript
 from ..ops.ydrop_exact import (MAX_COMP_GAP_E, ST_TRUNCATED,
-                               fresh_state_np, make_compact_alphabet)
+                               compact_alphabet, fresh_state_np,
+                               present_codes)
 
 DEFAULT_WIDTH = 768
 DEFAULT_ROWS = 1024
@@ -85,7 +91,10 @@ class DeviceYDrop:
             return
         if self.tb_cap >= (1 << 31):
             return
-        cmap_sub = make_compact_alphabet([v1, v2], sub, max_k=16)
+        with _stats.current.time("ydrop setup target"):
+            target_codes = present_codes(v1)
+        cmap_sub = compact_alphabet([target_codes, present_codes(v2)], sub,
+                                    max_k=16)
         if cmap_sub is None:
             return
         self.code_map, self.subsmall = cmap_sub
@@ -114,7 +123,9 @@ class DeviceYDrop:
 
     def _ensure_seqs(self):
         if self._v1c is None:
-            self._v1c = upload_codes(self.v1, self.code_map, self.device)
+            with _stats.current.time("ydrop setup target"):
+                self._v1c = upload_codes(self.v1, self.code_map,
+                                         self.device)
             self._v2c = upload_codes(self.v2, self.code_map, self.device)
 
     def _target_args(self, A1, LO1, HI1, REV, row0, rows, max_blocks):
@@ -172,83 +183,92 @@ class DeviceYDrop:
         lane_args = [A1t, T(A2), LO1t, HI1t, T(LO2), T(HI2), T(REV), T(M),
                      T(N)]
 
-        _x = _stats.current.extra
-        t_launch = _stats.current.time("ydrop device")
-        t_launch.__enter__()
-        state, prev_off, packed, tb_all, row_lo, row_hi, col0 = ydrop_mega(
-            v1c, self._v2c, *lane_args, state,
-            T(np.zeros(2 * B, np.int32)), subsmall, with_tb=True, **kw)
-        pk = packed.cpu().numpy()
-        done1 = pk[3].astype(bool)
-        blocks = self.max_blocks
-        launches = 1
-        cont_lanes = 0
-        # score-only continuation for extensions beyond the retained
-        # blocks (their traceback is redone on the host); only the
-        # live lanes go on
-        undone = np.nonzero(~done1)[0]
-        if len(undone):
-            sel = T(undone)
-            c_args = [a[sel] for a in lane_args]
-            c_state = {k: v[sel] for k, v in state.items()}
-            c_prev = prev_off[sel]
-            row_c = pk[0][undone].astype(np.int64)
-            while blocks < self._MAX_CHUNKS:
-                # the target's coordinates again at the lanes' rows (the
-                # sharded subclass re-extracts its windows as they go)
-                v1c, c_args[0], c_args[2], c_args[3] = self._target_args(
-                    A1[undone], LO1[undone], HI1[undone], REV[undone],
-                    np.maximum(row_c - 1, 0), self.rows, self.max_blocks)
-                c_state, c_prev, c_packed, _, _, _, _ = ydrop_mega(
-                    v1c, self._v2c, *c_args, c_state, c_prev,
-                    subsmall, with_tb=False, **kw)
-                cpk = c_packed.cpu().numpy()
-                row_c = cpk[0].astype(np.int64)
-                blocks += self.max_blocks
-                launches += 1
-                cont_lanes += len(undone)
-                if cpk[3].astype(bool).all():
-                    break
-            pk[:, undone] = cpk
-        # utilization / fallback visibility (--stats)
-        real = np.zeros(2 * B, bool)
-        real[: len(idxs)] = True
-        real[B: B + len(idxs)] = True
-        _x["ydrop launches"] = _x.get("ydrop launches", 0) + launches
-        _x["ydrop rows used"] = (_x.get("ydrop rows used", 0)
-                                 + int(pk[2][real].sum()))
-        _x["ydrop rows launched"] = (
-            _x.get("ydrop rows launched", 0)
-            + (2 * B + cont_lanes) * self.max_blocks * self.rows)
-        tb_redo = int((real & ~done1).sum())
-        if tb_redo:
-            # extensions longer than the retained traceback blocks:
-            # device score kept, extension redone on the host
-            _x["ydrop tb host-redo"] = (
-                _x.get("ydrop tb host-redo", 0) + tb_redo)
+        st = _stats.current
+        _x = st.extra
+        with st.time("ydrop device"):
+            (state, prev_off, packed, tb_all, row_lo, row_hi,
+             col0) = ydrop_mega(
+                v1c, self._v2c, *lane_args, state,
+                T(np.zeros(2 * B, np.int32)), subsmall, with_tb=True, **kw)
+            with st.time("ydrop wait"):
+                pk = packed.cpu().numpy()
+            done1 = pk[3].astype(bool)
+            blocks = self.max_blocks
+            launches = 1
+            cont_lanes = 0
+            # score-only continuation for extensions beyond the
+            # retained blocks (their traceback is redone on the host);
+            # only the live lanes go on
+            undone = np.nonzero(~done1)[0]
+            if len(undone):
+                sel = T(undone)
+                c_args = [a[sel] for a in lane_args]
+                c_state = {k: v[sel] for k, v in state.items()}
+                c_prev = prev_off[sel]
+                row_c = pk[0][undone].astype(np.int64)
+                while blocks < self._MAX_CHUNKS:
+                    # the target's coordinates again at the lanes' rows
+                    # (the sharded subclass re-extracts its windows as
+                    # they go)
+                    (v1c, c_args[0], c_args[2],
+                     c_args[3]) = self._target_args(
+                        A1[undone], LO1[undone], HI1[undone], REV[undone],
+                        np.maximum(row_c - 1, 0), self.rows,
+                        self.max_blocks)
+                    c_state, c_prev, c_packed, _, _, _, _ = ydrop_mega(
+                        v1c, self._v2c, *c_args, c_state, c_prev,
+                        subsmall, with_tb=False, **kw)
+                    with st.time("ydrop wait"):
+                        cpk = c_packed.cpu().numpy()
+                    row_c = cpk[0].astype(np.int64)
+                    blocks += self.max_blocks
+                    launches += 1
+                    cont_lanes += len(undone)
+                    if cpk[3].astype(bool).all():
+                        break
+                pk[:, undone] = cpk
+            # utilization / fallback visibility (--stats)
+            real = np.zeros(2 * B, bool)
+            real[: len(idxs)] = True
+            real[B: B + len(idxs)] = True
+            _x["ydrop launches"] = _x.get("ydrop launches", 0) + launches
+            _x["ydrop rows used"] = (_x.get("ydrop rows used", 0)
+                                     + int(pk[2][real].sum()))
+            _x["ydrop rows launched"] = (
+                _x.get("ydrop rows launched", 0)
+                + (2 * B + cont_lanes) * self.max_blocks * self.rows)
+            tb_redo = int((real & ~done1).sum())
+            if tb_redo:
+                # extensions longer than the retained traceback blocks:
+                # device score kept, extension redone on the host
+                _x["ydrop tb host-redo"] = (
+                    _x.get("ydrop tb host-redo", 0) + tb_redo)
 
-        small = dict(
-            row=pk[0], LY=pk[1], rows_used=pk[2], done=pk[3],
-            status=pk[4], best=pk[5], end1=pk[6], end2=pk[7],
-            bscore=pk[8], bflag=pk[9].astype(bool), tbp=pk[10],
-            maxRY=pk[11])
-        small["score"] = np.where(small["bflag"], small["bscore"],
-                                  small["best"])
+            small = dict(
+                row=pk[0], LY=pk[1], rows_used=pk[2], done=pk[3],
+                status=pk[4], best=pk[5], end1=pk[6], end2=pk[7],
+                bscore=pk[8], bflag=pk[9].astype(bool), tbp=pk[10],
+                maxRY=pk[11])
+            small["score"] = np.where(small["bflag"], small["bscore"],
+                                      small["best"])
 
-        # device traceback over the retained blocks, one call
-        cap = self.max_blocks * self.rows + lanes + 512
-        ops_d, n_d, row_d, col_d = traceback_mega(
-            tb_all, row_lo, row_hi, col0, packed[12], T(small["end1"]),
-            T(small["end2"]), T(done1), cap)
-        del tb_all
-        meta = torch.stack([n_d, row_d, col_d]).cpu().numpy()
-        n_np, row_np, col_np = meta
-        t_launch.__exit__()
+            # device traceback over the retained blocks, one call
+            cap = self.max_blocks * self.rows + lanes + 512
+            ops_d, n_d, row_d, col_d = traceback_mega(
+                tb_all, row_lo, row_hi, col0, packed[12],
+                T(small["end1"]), T(small["end2"]), T(done1), cap)
+            del tb_all
+            meta = torch.stack([n_d, row_d, col_d])
+            with st.time("ydrop wait"):
+                meta = meta.cpu().numpy()
+            n_np, row_np, col_np = meta
         ops_ok = done1 & (n_np < cap) & (row_np <= 0) & (col_np <= 0)
         ok_lanes = np.nonzero(ops_ok)[0]
         ops_np = np.zeros((2 * B, cap), np.uint8)
         if len(ok_lanes):
-            ops_np[ok_lanes] = ops_d[T(ok_lanes)].cpu().numpy()
+            ops = ops_d[T(ok_lanes)]
+            with st.time("ydrop wait"):
+                ops_np[ok_lanes] = ops.cpu().numpy()
 
         for j, k in enumerate(idxs):
             fwd = {key: small[key][j] for key in small}

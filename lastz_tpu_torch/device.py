@@ -11,7 +11,9 @@ alphabet and the SEQ_PAD-padded sequence codes
 (lastz_tpu/search/device_hits.py:93-161).  Uploads are cached by a
 digest of their content, never by id() or data_ptr(): a freed array's
 id can be reused by the other strand's sequence.  A position table
-built on the device is already there and is used in place.
+built on the device is already there and is used in place.  The run's
+RunStats counts the cache's hits and misses, the bytes each miss
+copied to the device and the bytes the digests read (--stats).
 
 The farm (parallel/farm.py) runs several pipelines at once, each in
 its own thread with its own CUDA stream.  So the upload cache is kept
@@ -32,7 +34,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .ops.ydrop_exact import make_compact_alphabet
+from . import stats
+from .ops.ydrop_exact import compact_alphabet, present_codes
 
 ENV_DEVICE = "LASTZ_TORCH_DEVICE"
 
@@ -89,6 +92,7 @@ def stream_key(device) -> tuple:
 def content_key(*arrays) -> str:
     """Digest of the arrays' dtypes, shapes and bytes."""
     h = hashlib.blake2b(digest_size=16)
+    n = 0
     for a in arrays:
         if a is None:
             h.update(b"none")
@@ -96,7 +100,16 @@ def content_key(*arrays) -> str:
         a = np.ascontiguousarray(a)
         h.update(f"{a.dtype.str}{a.shape}".encode())
         h.update(a.data)
+        n += a.nbytes
+    stats.current.add("digest bytes", n)
     return h.hexdigest()
+
+
+def _nbytes(made) -> int:
+    """Bytes of an upload: a tensor, or a dict of tensors and None."""
+    if isinstance(made, dict):
+        return sum(_nbytes(v) for v in made.values())
+    return made.numel() * made.element_size() if made is not None else 0
 
 
 def _cached(device, key, make):
@@ -104,13 +117,17 @@ def _cached(device, key, make):
     made by make() on a miss; each stream keeps its _CACHE_MAX most
     recently used uploads."""
     sk = stream_key(device)
+    st = stats.current
     with _CACHE_LOCK:
         mine = _CACHE.setdefault(sk, OrderedDict())
         hit = mine.get(key)
         if hit is not None:
             mine.move_to_end(key)
+            st.add("upload hits")
             return hit
     hit = make()
+    st.add("upload misses")
+    st.add("upload bytes", _nbytes(hit))
     with _CACHE_LOCK:
         mine = _CACHE.setdefault(sk, OrderedDict())
         mine[key] = hit
@@ -168,19 +185,27 @@ def upload_position_table(pt, device) -> dict:
 
 
 def carry_state(seq1, seq2, sub, device, pt=None) -> dict | None:
-    """Everything the device stages read, built once on the host:
-    the compact alphabet of the two sequences (code_map, subsmall), the
-    SEQ_PAD-padded codes seq1p/seq2p, and with `pt` the position-table
-    CSR.  Returns None when the sequences use more than 16 codes."""
-    cmap = make_compact_alphabet([seq1, seq2], sub, max_k=16)
+    """Everything the seed stage's device search reads, built once on
+    the host: the compact alphabet of the two sequences (code_map,
+    subsmall), the SEQ_PAD-padded codes seq1p/seq2p, and with `pt` the
+    position-table CSR.  Returns None when the sequences use more than
+    16 codes.  The target's part (its codes and the table) is timed as
+    "hitgen setup target", the query's as "hitgen setup query"."""
+    st = stats.current
+    with st.time("hitgen setup target"):
+        target_codes = present_codes(seq1)
+    with st.time("hitgen setup query"):
+        cmap = compact_alphabet([target_codes, present_codes(seq2)], sub,
+                                max_k=16)
     if cmap is None:
         return None
     code_map, subsmall = cmap
-    state = dict(
-        code_map=code_map, subsmall=subsmall,
-        subsmall_t=torch.from_numpy(subsmall).to(device),
-        seq1p=upload_codes(seq1, code_map, device, SEQ_PAD),
-        seq2p=upload_codes(seq2, code_map, device, SEQ_PAD))
-    if pt is not None:
-        state.update(upload_position_table(pt, device))
+    state = dict(code_map=code_map, subsmall=subsmall,
+                 subsmall_t=torch.from_numpy(subsmall).to(device))
+    with st.time("hitgen setup target"):
+        state["seq1p"] = upload_codes(seq1, code_map, device, SEQ_PAD)
+        if pt is not None:
+            state.update(upload_position_table(pt, device))
+    with st.time("hitgen setup query"):
+        state["seq2p"] = upload_codes(seq2, code_map, device, SEQ_PAD)
     return state

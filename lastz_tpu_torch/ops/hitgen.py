@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import stats as _stats
 from ..device import SEQ_PAD
 
 DIAG_HASH_SIZE = 65536
@@ -403,8 +404,9 @@ def hit_launch(seq1p, seq2p, subflat, csr_pos, alive_tab, cum, ends,
         cand = alive & (bind | (lscore + rscore >= thresh)) \
             if use_thresh else alive
 
-    # in-order compaction
-    sel = torch.nonzero(cand)[:, 0]
+    # in-order compaction: the launch's first wait on the device
+    with _stats.current.time("hitgen wait"):
+        sel = torch.nonzero(cand)[:, 0]
     n_keep = sel.shape[0]
     keep = sel[:out_cap]
     out = torch.zeros((9, out_cap), dtype=_I32, device=dev)
@@ -413,9 +415,10 @@ def hit_launch(seq1p, seq2p, subflat, csr_pos, alive_tab, cum, ends,
     out[:, : keep.shape[0]] = torch.stack([v[keep] for v in rows]).to(_I32)
     # one fetch for the counts and the walk's converged flag (a 0-d
     # tensor from its kernel, a bool from its plain version)
-    n_live, n_alive, converged = torch.stack([
-        live.sum(), alive.sum(),
-        torch.as_tensor(converged, device=dev).to(_I64)]).tolist()
+    counts = torch.stack([live.sum(), alive.sum(),
+                          torch.as_tensor(converged, device=dev).to(_I64)])
+    with _stats.current.time("hitgen wait"):
+        n_live, n_alive, converged = counts.tolist()
     discard = n_keep > out_cap or not converged
     scalars = torch.tensor([n_keep, n_live, n_live - n_alive, n_alive,
                             int(converged), 0])

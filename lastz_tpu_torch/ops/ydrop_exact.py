@@ -70,18 +70,30 @@ OP_D = 3
 _I32 = torch.int32
 
 
+def present_codes(a) -> np.ndarray:
+    """The byte codes present in one array, a 256-entry bool mask."""
+    a = np.asarray(a)
+    if a.dtype == np.uint8:  # a count is a tenth of a sort's time
+        return np.bincount(a.ravel(), minlength=256) > 0
+    present = np.zeros(256, bool)
+    present[np.unique(a)] = True
+    return present
+
+
 def make_compact_alphabet(arrays, sub, max_k=16):
     """Compact alphabet over the byte codes present in `arrays` (plus
     NUL); returns (code_map[256] -> small index, subsmall (K,K) int32)
     or None when more than max_k codes occur."""
+    return compact_alphabet([present_codes(a) for a in arrays], sub, max_k)
+
+
+def compact_alphabet(masks, sub, max_k=16):
+    """make_compact_alphabet from the arrays' present_codes masks, so
+    that each array's part can be computed (and timed) on its own."""
     present = np.zeros(256, bool)
     present[0] = True
-    for a in arrays:
-        a = np.asarray(a)
-        if a.dtype == np.uint8:  # a count is a tenth of a sort's time
-            present |= np.bincount(a.ravel(), minlength=256) > 0
-        else:
-            present[np.unique(a)] = True
+    for m in masks:
+        present |= m
     codes = np.nonzero(present)[0]
     if len(codes) > max_k:
         return None

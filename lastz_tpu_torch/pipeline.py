@@ -719,6 +719,13 @@ class Pipeline:
 
     def _run_query(self, target, pt, query, collect_from_both,
                    collect_separately):
+        # the span of the query, its ordinal the count of queries read
+        with self.stats.span("query", query=self.stats.num_queries):
+            self._run_strands(target, pt, query, collect_from_both,
+                              collect_separately)
+
+    def _run_strands(self, target, pt, query, collect_from_both,
+                     collect_separately):
         cfg = self.cfg
         disp = self.dispatcher
 
@@ -758,14 +765,18 @@ class Pipeline:
             skip_plus = chore.q_strand < 0
             skip_minus = chore.q_strand == 0
 
+        # the first pass's strand: the query was reverse-complemented
+        # before it when only the minus strand is searched
+        first = "-" if cfg.which_strand < 0 else "+"
         if not skip_plus:
-            ok = self._start_one_strand(target, pt, query,
-                                        empty_anchors=True)
-            if not ok:
-                return
+            with self.stats.span("strand", strand=first):
+                ok = self._start_one_strand(target, pt, query,
+                                            empty_anchors=True)
+                if not ok:
+                    return
 
-            if not collect_from_both:
-                self._finish_one_strand(target, pt, query)
+                if not collect_from_both:
+                    self._finish_one_strand(target, pt, query)
         else:
             self.anchors = SegmentTable(
                 coverage_limit=cfg.hsp_threshold.c
@@ -779,32 +790,36 @@ class Pipeline:
             chore.query_interval = _resolve_chore_query(query, chore, "-")
 
         if cfg.which_strand > 0:
-            self._rev_comp_query(query)
-            disp.set_sequences(target, query)
-            prev_anchor_count = 0
-            if collect_separately and self.anchors is not None:
-                prev_anchor_count = len(self.anchors)
-                self._swap_anchor_sets()
-                self.anchors = SegmentTable()
-            ok = self._start_one_strand(
-                target, pt, query,
-                empty_anchors=not collect_from_both,
-                prev_anchor_count=prev_anchor_count)
-            if not ok:
-                return
-            if cfg.num_best_hsps > 0:
-                self._choose_best_anchors(cfg.num_best_hsps)
-            if collect_from_both and not collect_separately:
-                self._split_anchors(query.rev_comp_flags)
-            self._finish_one_strand(target, pt, query)
-            if collect_from_both:
-                self._swap_anchor_sets()
+            with self.stats.span("strand", strand="-"):
                 self._rev_comp_query(query)
                 disp.set_sequences(target, query)
+                prev_anchor_count = 0
+                if collect_separately and self.anchors is not None:
+                    prev_anchor_count = len(self.anchors)
+                    self._swap_anchor_sets()
+                    self.anchors = SegmentTable()
+                ok = self._start_one_strand(
+                    target, pt, query,
+                    empty_anchors=not collect_from_both,
+                    prev_anchor_count=prev_anchor_count)
+                if not ok:
+                    return
+                if cfg.num_best_hsps > 0:
+                    self._choose_best_anchors(cfg.num_best_hsps)
+                if collect_from_both and not collect_separately:
+                    self._split_anchors(query.rev_comp_flags)
+                self._finish_one_strand(target, pt, query)
+                if collect_from_both:
+                    self._swap_anchor_sets()
+                    self._rev_comp_query(query)
+                    disp.set_sequences(target, query)
 
         if collect_from_both:
-            disp.init_for_strand()
-            self._finish_one_strand(target, pt, query)
+            # one gapped pass over both strands' anchors
+            with self.stats.span("strand", strand="+-"
+                                 if cfg.which_strand > 0 else first):
+                disp.init_for_strand()
+                self._finish_one_strand(target, pt, query)
         self._chore = None
 
     def _build_position_table(self, target):

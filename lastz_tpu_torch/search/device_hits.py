@@ -10,6 +10,11 @@ place; host arrays are uploaded once, cached by content); the 64K
 diagonal-extent state (and recover mode's diagActual) stays on the
 device for the whole search.
 
+Stats: "hitgen setup" holds "hitgen setup target" (the target's codes
+and table, device.carry_state) and "hitgen setup query" (the query's
+codes, packed words and padding); "hitgen wait" is every blocking fetch
+of the stage (here and in ops/hitgen.hit_launch).
+
 Launch plan: query windows go in fixed-size chunks; each chunk's
 candidate total is counted on the device (one scalar fetched) and cut
 into fixed HIT_BUDGET launches whose only outputs are the compacted
@@ -120,37 +125,41 @@ def device_search(engine, device, start: int = 0, end: int = 0):
             return None
         build.count(device_search, "runs")
         K = state["subsmall"].shape[0]
-        q_codes = engine.char_to_bits[
-            engine.seq2[start:end]].astype(np.int8)
         subflat_d = state["subsmall_t"].reshape(-1)
         xors_d = torch.from_numpy(_probe_xors(seed)).to(device)
         nprobe = xors_d.shape[0]
-        qdev = torch.from_numpy(q_codes).to(device)
-        packed, valid = pack_query_words(qdev, seed.bit_map, L,
-                                         seed.bits_per_base)
         # overweight seeds: the demoted (resolving) bits of each query
         # window, the index's per-entry resolving words and the
         # per-probe transition budgets (seeds.c:8-127)
         has_resolve = seed.type == "R"
         qres = csr_resolve_d = budgets_d = None
         if has_resolve:
-            resolve_map = tuple((int(src), i)
-                                for i, src in enumerate(seed.resolve_bits))
-            qres, _ = pack_query_words(qdev, resolve_map, L,
-                                       seed.bits_per_base)
-            csr_resolve_d = _csr_resolve_on(engine.pt, device)
+            with st.time("hitgen setup target"):
+                csr_resolve_d = _csr_resolve_on(engine.pt, device)
             budgets_d = torch.from_numpy(_probe_budgets(seed)).to(device)
-        num_w = end - start - L + 1
-        PCHUNK = min(_DEF_PCHUNK, max(1 << 14, (1 << 24) // nprobe),
-                     1 << max(8, (num_w - 1).bit_length()))
-        n_chunks = (num_w + PCHUNK - 1) // PCHUNK
-        pad = n_chunks * PCHUNK - num_w
-        if pad:
-            packed = torch.cat([packed, packed.new_zeros(pad)])
-            valid = torch.cat([valid, valid.new_zeros(pad)])
+        with st.time("hitgen setup query"):
+            q_codes = engine.char_to_bits[
+                engine.seq2[start:end]].astype(np.int8)
+            qdev = torch.from_numpy(q_codes).to(device)
+            packed, valid = pack_query_words(qdev, seed.bit_map, L,
+                                             seed.bits_per_base)
             if has_resolve:
-                qres = torch.cat([qres, qres.new_zeros(pad)])
-        st.words_in_queries += int(valid.sum())
+                resolve_map = tuple(
+                    (int(src), i) for i, src in enumerate(seed.resolve_bits))
+                qres, _ = pack_query_words(qdev, resolve_map, L,
+                                           seed.bits_per_base)
+            num_w = end - start - L + 1
+            PCHUNK = min(_DEF_PCHUNK, max(1 << 14, (1 << 24) // nprobe),
+                         1 << max(8, (num_w - 1).bit_length()))
+            n_chunks = (num_w + PCHUNK - 1) // PCHUNK
+            pad = n_chunks * PCHUNK - num_w
+            if pad:
+                packed = torch.cat([packed, packed.new_zeros(pad)])
+                valid = torch.cat([valid, valid.new_zeros(pad)])
+                if has_resolve:
+                    qres = torch.cat([qres, qres.new_zeros(pad)])
+            with st.time("hitgen wait"):
+                st.words_in_queries += int(valid.sum())
 
     csr_start = state["csr_start"]
 
@@ -160,8 +169,9 @@ def device_search(engine, device, start: int = 0, end: int = 0):
 
     # phase 1: per-chunk candidate totals (one small fetch)
     with st.time("hitgen counts"):
-        totals = torch.stack([chunk(c)[2] for c in range(n_chunks)]
-                             ).tolist()
+        totals = torch.stack([chunk(c)[2] for c in range(n_chunks)])
+        with st.time("hitgen wait"):
+            totals = totals.tolist()
 
     de = torch.full((65536,), -1, dtype=torch.int32, device=device)
     da = torch.zeros(65536, dtype=torch.int32, device=device)
@@ -276,7 +286,8 @@ def device_search(engine, device, start: int = 0, end: int = 0):
                     if has_resolve else None, budgets_d, **kw)
                 n_keep = int(scalars[0])
                 converged = bool(scalars[4])
-                out_np = out[:, :min(n_keep, out_cap)].cpu().numpy()
+                with st.time("hitgen wait"):
+                    out_np = out[:, :min(n_keep, out_cap)].cpu().numpy()
             if not converged or n_keep > out_cap:
                 # output overflow, or a hash chain longer than the
                 # resolver's cap: discard and re-run as two half ranges

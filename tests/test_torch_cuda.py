@@ -825,3 +825,41 @@ def test_cuda_sharded_cli_matches_unsharded():
     launches, args, index = shard_cli("test", pair, ref)
     assert launches["xdrop_scan"] > 0 and index.n_shards == 4
     assert len(args[6]) > 0  # the gapped stage's anchors
+
+
+@pytest.mark.cuda
+def test_cuda_profile_records_spans_on_its_clock():
+    """Under a CUDA-only torch.profiler profile, as the benchmark's
+    traced run makes it, the program records its spans with no switch
+    of its own, and a span around a kernel and its synchronise holds
+    the kernel's device interval once mapped onto the profile's clock
+    (stats.Trace.unix_ns less the profile's start), within 100 us."""
+    import time
+    from lastz_tpu_torch import stats
+    _card()
+    st = stats.RunStats()
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    n0 = len(stats.recorded().spans)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            with st.time(f"span{i}"):
+                torch.cuda._sleep(20_000_000)
+                torch.cuda.synchronize()
+            time.sleep(0.5)
+    tr = stats.recorded()
+    spans = tr.spans[n0:]
+    assert [s.name for s in spans] == ["span0", "span1", "span2"]
+    start_ns = prof.profiler.kineto_results.trace_start_ns()
+    kernels = sorted((e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    assert len(kernels) == 3, kernels
+
+    def us(t):
+        return (tr.unix_ns(t) - start_ns) / 1e3
+
+    for (a, b), s in zip(kernels, spans):
+        assert us(s.t0) - 100 <= a and b <= us(s.t1) + 100, (a, b, s.name)
+        assert b - a > 1000
