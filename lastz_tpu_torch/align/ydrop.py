@@ -1487,7 +1487,7 @@ def gapped_extend(target, query, scoring, anchors: SegmentTable,
                   all_bounds=False, max_paired_bases=0,
                   overly_paired_warn=False, overly_paired_keep=False,
                   on_overly_paired=None, use_device=True,
-                  truncation_report=True, device=None):
+                  truncation_report=True, device=None, target_state=None):
     """reference gapped_extend (gapped_extend.c:1012), unpartitioned path.
 
     Returns list of Alignment in increasing-start order.  When
@@ -1495,7 +1495,8 @@ def gapped_extend(target, query, scoring, anchors: SegmentTable,
     kernel on `device` (the pipeline's; device.get_device() when None),
     and only anchors whose DP could interact with previously accepted
     alignments run on the host engine (see align/ydrop_device.py); a
-    device failure is an error.
+    device failure is an error.  `target_state`, the run's
+    device.TargetState, hands the device stage the target's codes.
     """
     thresh = score_thresh.s if score_thresh is not None else 0
 
@@ -1535,7 +1536,8 @@ def gapped_extend(target, query, scoring, anchors: SegmentTable,
         from .ydrop_device import DeviceYDrop
         device = DeviceYDrop(target.v, query.v, scoring, y_drop,
                              trim_to_peak, traceback_mem, seg_infos,
-                             get_device() if device is None else device)
+                             get_device() if device is None else device,
+                             target=target_state)
         if not device.ok:
             device = None
     # incremental index over accepted alignments: obi/oed linked lists,

@@ -19,7 +19,8 @@ goes to the host engine for that anchor, and --stats counts it.
   * the traceback of every finished lane runs on the device in one
     call (csrc/ydrop_traceback.cu) and is decoded on the host.
 
-Stats: "ydrop setup target" (the target's codes and their upload),
+Stats: "ydrop setup target" (the target's codes and their upload, or
+their lookup in the run's device.TargetState),
 "ydrop device" (a batch's launches up to its traceback's fetch) and
 "ydrop wait" (each blocking fetch) are spans under the accept loop's
 "gapped"; the host engine's "ydrop host" is a bucket (align/ydrop.py).
@@ -54,11 +55,15 @@ class DeviceYDrop:
     _MAX_CHUNKS = 4096
 
     def __init__(self, v1, v2, scoring, y_drop, trim_to_peak,
-                 traceback_mem, seg_infos, device):
+                 traceback_mem, seg_infos, device, target=None):
         """seg_infos: list of (anchor1, anchor2, low1, high1, low2,
-        high2) in accept order (decreasing score)."""
+        high2) in accept order (decreasing score).  `target`, the run's
+        device.TargetState, gives v1's present codes and codes where v1
+        is its own (`target.v`)."""
         self.ok = False
         self.v1 = v1
+        self.target = target if target is not None and target.v is v1 \
+            else None
         self.v2 = v2
         self.device = device
         self.trim_to_peak = trim_to_peak
@@ -92,7 +97,8 @@ class DeviceYDrop:
         if self.tb_cap >= (1 << 31):
             return
         with _stats.current.time("ydrop setup target"):
-            target_codes = present_codes(v1)
+            target_codes = (self.target.present() if self.target is not None
+                            else present_codes(v1))
         cmap_sub = compact_alphabet([target_codes, present_codes(v2)], sub,
                                     max_k=16)
         if cmap_sub is None:
@@ -124,8 +130,10 @@ class DeviceYDrop:
     def _ensure_seqs(self):
         if self._v1c is None:
             with _stats.current.time("ydrop setup target"):
-                self._v1c = upload_codes(self.v1, self.code_map,
-                                         self.device)
+                self._v1c = (
+                    self.target.codes(self.code_map, self.device)
+                    if self.target is not None
+                    else upload_codes(self.v1, self.code_map, self.device))
             self._v2c = upload_codes(self.v2, self.code_map, self.device)
 
     def _target_args(self, A1, LO1, HI1, REV, row0, rows, max_blocks):

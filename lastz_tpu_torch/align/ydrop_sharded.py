@@ -84,10 +84,10 @@ class ShardedTargetYDrop(DeviceYDrop):
     band."""
 
     def __init__(self, index, v1, v2, scoring, y_drop, trim_to_peak,
-                 traceback_mem, seg_infos, device):
+                 traceback_mem, seg_infos, device, target=None):
         self.index = index
         super().__init__(v1, v2, scoring, y_drop, trim_to_peak,
-                         traceback_mem, seg_infos, device)
+                         traceback_mem, seg_infos, device, target)
         if not self.ok:
             return
         # the kernel must read the same compact codes the shards hold

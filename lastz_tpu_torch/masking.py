@@ -129,7 +129,8 @@ def remove_interval_seeds(pt, seed, target_v, beg, end):
     Must be called BEFORE the characters are masked, so the old word
     values can be recomputed.  Word END positions p with
     p - L < end and p > beg are affected; the reference expands the
-    interval by seedLength-1 on each side and rescans.
+    interval by seedLength-1 on each side and rescans.  Returns the
+    indices into csr_pos of the entries it cleared (int64).
     """
     from .core.encoding import UPPER_NUC_TO_BITS
     from .index.postable import _window_words
@@ -137,21 +138,25 @@ def remove_interval_seeds(pt, seed, target_v, beg, end):
     L = seed.length
     lo = max(0, beg - (L - 1))
     hi = min(len(target_v), end + (L - 1))
+    none = np.zeros(0, np.int64)
     if hi - lo < L:
-        return
+        return none
     codes = UPPER_NUC_TO_BITS[target_v[lo:hi]]
     words, valid = _window_words(codes, L, seed.bits_per_base)
     end_pos = lo + L + np.arange(len(words), dtype=np.int64)
     sel = valid & ((end_pos % pt.step) == 0)
     if not np.any(sel):
-        return
+        return none
     packed = seed.pack(words[sel])
     stored = ((end_pos[sel] - pt.adj_start) // pt.step).astype(pt.csr_pos.dtype)
     if pt.alive is None:
         pt.alive = np.ones(len(pt.csr_pos), dtype=bool)
+    cleared = [none]
     for w, p in zip(packed.tolist(), stored.tolist()):
         loix, hiix = pt.csr_start[w], pt.csr_start[w + 1]
         seg = pt.csr_pos[loix:hiix]
         hits = np.nonzero(seg == p)[0]
         if len(hits):
             pt.alive[loix + hits] = False
+            cleared.append(loix + hits.astype(np.int64))
+    return np.concatenate(cleared)

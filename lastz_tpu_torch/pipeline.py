@@ -29,7 +29,7 @@ from .io.sequence import SequenceFile, Sequence
 from .out.dispatcher import OutputDispatcher
 from .search.engine import SeedSearchEngine, HitProcessorParams
 from .align.segments import SegmentTable, Segment
-from .device import get_device, resolve_device
+from .device import TargetState, get_device, resolve_device
 
 # the program name written in the output: the same bytes as lastz_tpu
 PROGRAM_NAME = "lastz_tpu.v0.1.0"
@@ -187,17 +187,17 @@ def _resolve_chore_query(query, chore, strand):
             offset + seq_end - (chore.q_start - 1))
 
 
-def _fence_interval(v, interval):
+def _fence_interval(v, interval, mark=None):
     """reference fence_sequence_interval (sequences.c:7789): NUL the
-    characters just outside [s, e); returns restore info."""
+    characters just outside [s, e), each announced to `mark(beg, end)`
+    first where one is given; returns restore info."""
     s, e = interval
     saved = []
-    if s >= 1:
-        saved.append((s - 1, int(v[s - 1])))
-        v[s - 1] = 0
-    if e < len(v):
-        saved.append((e, int(v[e])))
-        v[e] = 0
+    for pos in ([s - 1] if s >= 1 else []) + ([e] if e < len(v) else []):
+        saved.append((pos, int(v[pos])))
+        if mark is not None:
+            mark(pos, pos + 1)
+        v[pos] = 0
     return saved
 
 
@@ -261,6 +261,9 @@ class Pipeline:
         self.device = (get_device() if device is None
                        else resolve_device(device))
         self._farm_cache = None
+        # the run's target on the device (device.TargetState), made by
+        # run() once the target and its index are there
+        self.target_state = None
 
     def _farm_devices(self):
         """Device slots of the query farm-out (FARM_SLOTS, or every
@@ -473,6 +476,10 @@ class Pipeline:
                                      cfg.word_count_keep)
         self.target = target
         self.pt = pt
+        # both stages of every strand find the target's device copies
+        # through it; dynamic masking and the chore fences mark their
+        # writes on it
+        self.target_state = TargetState(target.v, pt)
 
         if cfg.show_pos_table:
             # --tableonly/--showtable (lastz.c:1325-1360)
@@ -978,17 +985,21 @@ class Pipeline:
             seed_queue_size=cfg.seed_queue_size,
             band_width=cfg.band_width,
             device=self.device,
+            target_state=self.target_state,
         )
         engine.on_limit_exceeded = self._make_limit_warner(query)
         chore = getattr(self, "_chore", None)
         fences = []
         if chore is not None:
             # fence the chore intervals for the duration of the search
-            # (lastz.c:3030-3031; removed again at :3171)
-            fences.append((target.v,
+            # (lastz.c:3030-3031; removed again at :3171); the target's
+            # writes are marked on its handle
+            ts = self.target_state
+            mark = ts.mark if ts is not None and ts.v is target.v else None
+            fences.append((target.v, mark,
                            _fence_interval(target.v,
-                                           chore.target_interval)))
-            fences.append((query.v,
+                                           chore.target_interval, mark)))
+            fences.append((query.v, None,
                            _fence_interval(query.v,
                                            chore.query_interval)))
         try:
@@ -999,8 +1010,10 @@ class Pipeline:
                 else:
                     engine.search(0, len(query.v))
         finally:
-            for v, saved in fences:
+            for v, mark, saved in fences:
                 for pos, ch in saved:
+                    if mark is not None:
+                        mark(pos, pos + 1)
                     v[pos] = ch
 
         if (cfg.search_limit > 0 and not cfg.search_limit_keep
@@ -1126,6 +1139,7 @@ class Pipeline:
                         query, max_paired),
                     truncation_report=not cfg.no_truncation_report,
                     device=self.device,
+                    target_state=self.target_state,
                 )
             align_list = self._filter_aligns(target, query, align_list)
             if align_list and cfg.inner_threshold > 0:
@@ -1299,10 +1313,13 @@ class Pipeline:
     def _on_mask_interval(self, beg, end):
         """Masking callback: drop the seeds over the masked interval
         BEFORE the characters are overwritten (reference
-        remove_interval_seeds)."""
+        remove_interval_seeds), and mark both writes on the target's
+        handle."""
         from .masking import remove_interval_seeds
-        remove_interval_seeds(self.pt, self.cfg.seed, self.target.v,
-                              beg - 1, end)
+        cleared = remove_interval_seeds(self.pt, self.cfg.seed,
+                                        self.target.v, beg - 1, end)
+        if self.target_state is not None:
+            self.target_state.mark(beg - 1, end, cleared)
 
     def _print_align_list_segments(self, align_list):
         """reference print_align_list_segments (output.c:126): print

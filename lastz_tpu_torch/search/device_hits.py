@@ -120,7 +120,7 @@ def device_search(engine, device, start: int = 0, end: int = 0):
         sub = (engine._sub if not no_extend
                else np.zeros((256, 256), np.int64))
         state = carry_state(engine.seq1, engine.seq2, sub, device,
-                            pt=engine.pt)
+                            pt=engine.pt, target=engine.target_state)
         if state is None:
             return None
         build.count(device_search, "runs")

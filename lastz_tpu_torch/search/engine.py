@@ -101,6 +101,7 @@ class SeedSearchEngine:
         on_limit_exceeded: Optional[Callable[[], None]] = None,
         band_width: int = 0,  # --band= (seed_search.c:845,907)
         device=None,  # torch device of the seed search; None: host tiers
+        target_state=None,  # the run's device.TargetState, for seq1_v and pt
     ):
         self.seq1 = seq1_v
         self.pt = pt
@@ -119,6 +120,7 @@ class SeedSearchEngine:
         self.twin_max_span = twin_max_span
         self.anchors = anchors
         self.device = device
+        self.target_state = target_state
         if seed_queue_size > 0:
             self.SEED_HIT_QUEUE_SIZE = seed_queue_size
 

@@ -165,10 +165,19 @@ def test_counters_and_their_deltas(runs):
         == st.alignments > 0
     assert sum(s.counts.get("digest bytes", 0) for s in queries) \
         == st.extra["digest bytes"]
+    # the run's target handle: built on the first query, reused after,
+    # never patched without masking
+    assert st.extra["target builds"] > 0
+    assert st.extra["target reuses"] >= 2 * len(queries)
+    assert st.extra["target patches"] == st.extra["target patch bytes"] == 0
+    for k in ("target reuses", "target builds"):
+        assert sum(s.counts.get(k, 0) for s in queries) == st.extra[k], k
+    assert queries[1].counts.get("target builds", 0) == 0
     out = io.StringIO()
     st.show(out)
     for k in ("upload hits", "digest bytes", "hitgen setup target",
-              "ydrop wait", "tweener"):
+              "ydrop wait", "tweener", "target reuses", "target builds",
+              "target patches", "target patch bytes"):
         assert k in out.getvalue(), k
 
 
