@@ -6,17 +6,20 @@ program's own parser, the target loaded and indexed once on the card,
 and one short warm-up query of the cell's own traffic. The window then
 drives `Pipeline.run(target=T, pt=PT)`, the CLI's own query loop, with
 a query file whose `load()` hands over one record at a time until the
-window's seconds are spent; the LAV goes to an in-memory sink. A query
-is timed from its handover to the end of its processing, when its last
+window's seconds are spent; the output (LAV, SAM, whatever the
+configuration's options ask for) goes to an in-memory sink. A query is
+timed from its handover to the end of its processing, when its last
 output byte is written.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import io
 import json
 import os
+import re
 import time
 
 import numpy as np
@@ -26,10 +29,14 @@ from .trace import Spans
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WARM_BP = 60_000
-# query bases made in set-up, more than any window completes (at most
-# about 8 Mbp); records past them are made on demand from (seed, index)
-# alike
+# query bases made in set-up, and at most so many records, so that a
+# traffic of short reads makes its pool in well under a second; records
+# past them are made on demand from (seed, index) alike
 POOL_BP = 10_000_000
+POOL_RECORDS = 2048
+# a configuration's "check" names its judge, portbench/reference/<check>.py
+CHECK = re.compile(r"^[a-z][a-z0-9_]*$")
+DEFAULT_CHECK = "check"
 
 
 def load_json(*parts):
@@ -54,6 +61,15 @@ class Cell:
                                  self.workload["traffic"] + ".json")
         self.limits = load_json(root, "portbench", "cells", name + ".json")
         self.root = root
+        self.check_name = self.config.get("check", DEFAULT_CHECK)
+        if not CHECK.match(self.check_name):
+            raise SystemExit(f"bad check name {self.check_name!r}")
+
+    def judge(self):
+        """The module that decides `correct` for this configuration: its
+        `NUMBERS` and `judge(...)`."""
+        return importlib.import_module("portbench.reference."
+                                       + self.check_name)
 
     def metrics(self, kind: str) -> list[dict]:
         """The cell's end_to_end or per_layer metrics."""
@@ -69,10 +85,11 @@ class Cell:
 class Record:
     """A query record in the window."""
 
-    __slots__ = ("seq", "handover", "done", "offset", "timers", "counts",
-                 "anchors", "tweener_s", "lav")
+    __slots__ = ("name", "seq", "handover", "done", "offset", "timers",
+                 "counts", "anchors", "tweener_s", "text")
 
-    def __init__(self, seq):
+    def __init__(self, name, seq):
+        self.name = name
         self.seq = seq
         self.handover = self.done = None
         self.offset = 0
@@ -80,7 +97,9 @@ class Record:
         self.counts = {}
         self.anchors = {}
         self.tweener_s = 0.0
-        self.lav = ""
+        # the output the program wrote for this record, in the
+        # configuration's format
+        self.text = ""
 
 
 class Feeder:
@@ -110,7 +129,7 @@ class Feeder:
         with open(self.path, "wb") as f:
             f.write(fasta(name, seq))
         query = SequenceFile(self.path).load()
-        rec = Record(seq)
+        rec = Record(name, seq)
         rec.offset = self.sink.tell()
         rec.handover = time.monotonic()
         self.records.append(rec)
@@ -207,6 +226,18 @@ def hooks(feeder):
         yield
 
 
+def make_pool(model: GenomeModel, traffic: dict, bp: float) -> list:
+    """The records made in set-up, (name, bases) from index 0: until
+    they hold `bp` bases or POOL_RECORDS records."""
+    pool = []
+    total = 0
+    while total < bp and len(pool) < POOL_RECORDS:
+        name, seq, _ = model.record(traffic, len(pool))
+        pool.append((name, seq))
+        total += len(seq)
+    return pool
+
+
 class Run:
     """Set-up and window of one cell on one device."""
 
@@ -224,12 +255,8 @@ class Run:
         from lastz_tpu_torch.cli import parse_options
         from lastz_tpu_torch.io.sequence import SequenceFile
         self.model = GenomeModel(self.seed, self.genome)
-        self.pool = []
-        total = 0
-        while total < POOL_BP * self.genome["target_bp"] / 20_010_000:
-            name, seq, _ = self.model.record(self.traffic, len(self.pool))
-            self.pool.append((name, seq))
-            total += len(seq)
+        self.pool = make_pool(self.model, self.traffic,
+                              POOL_BP * self.genome["target_bp"] / 20_010_000)
         self.target_path = os.path.join(self.tmpdir, "target.fa")
         with open(self.target_path, "wb") as f:
             f.write(fasta("target", self.model.target))
@@ -241,8 +268,10 @@ class Run:
         builder = Pipeline(self.parse(), out=io.StringIO(),
                            device=self.device)
         self.pt = builder._build_position_table(self.target)
-        # warm-up: one short query of the cell's traffic
-        name, seq, _ = self.model.record(self.traffic, 0, length=WARM_BP,
+        # warm-up: one short query of the cell's traffic, no longer
+        # than its longest record
+        warm = min(WARM_BP, self.traffic["record_bp"][1])
+        name, seq, _ = self.model.record(self.traffic, 0, length=warm,
                                          key=WARM_KEY)
         self.drive(lambda i: (name, seq), lambda f: len(f.records) >= 1)
         self.sync()
@@ -272,7 +301,7 @@ class Run:
         recs = feeder.records
         for k, rec in enumerate(recs):
             stop_at = recs[k + 1].offset if k + 1 < len(recs) else len(text)
-            rec.lav = text[rec.offset:stop_at]
+            rec.text = text[rec.offset:stop_at]
         return recs, end
 
     def window(self, seconds: float):

@@ -15,7 +15,7 @@ import time
 import numpy as np
 
 from .bench import ROOT, Cell, Run
-from .reference.check import judge
+from .faults import FAULTS
 from .reference.scoring import Scores, read_matrix
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "lastz_tpu")
@@ -39,8 +39,8 @@ def reader(name: str):
 
 def reference_scores(cell):
     c = cell.config
-    return Scores(read_matrix(os.path.join(ROOT, "portbench", "configs",
-                                           c["scores_file"])),
+    return Scores(read_matrix(os.path.join(cell.root, "portbench",
+                                           "configs", c["scores_file"])),
                   c["reference"]["gap_open"], c["reference"]["gap_extend"])
 
 
@@ -127,18 +127,20 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
 
 def check(cell: Cell, run, records, fault=None):
-    """The numbers of a window's outputs (after `fault`, a transform of
-    faults.py, for the control and the tests) and the check's facts."""
+    """The numbers of a window's outputs (after `fault`, one of
+    faults.py's transforms for the configuration's judge, for the
+    control and the tests) and the check's facts, by the judge the
+    configuration names."""
     target = run.model.target
     if fault is not None:
-        from .faults import FAULTS
-        FAULTS[fault](records, target, reference_scores(cell))
-    queries = [{"seq": r.seq, "lav": r.lav, "anchors": r.anchors}
-               for r in records]
-    return judge(queries, target, dict(cell.config["reference"]),
-                 reference_scores(cell), cell.limits["sample_queries"],
-                 np.random.default_rng([int(run.seed) % (1 << 64), 5]),
-                 run.device)
+        FAULTS[cell.check_name][fault](records, target,
+                                       reference_scores(cell))
+    queries = [{"name": r.name, "seq": r.seq, "text": r.text,
+                "anchors": r.anchors} for r in records]
+    return cell.judge().judge(
+        queries, target, dict(cell.config["reference"]),
+        reference_scores(cell), cell.limits["sample_queries"],
+        np.random.default_rng([int(run.seed) % (1 << 64), 5]), run.device)
 
 
 def execute(cell: Cell, seed: int, seconds: float, trace: bool, device,

@@ -6,8 +6,9 @@
 For each seed, one set-up and one short window at the cell's own load,
 then the check of its outputs as the program gave them (the lower
 reading of every number) and, for the first `--fault-seeds` seeds, of
-the same outputs under the control and each planted fault of faults.py
-(the upper readings; `--faults` names a few of them). One JSON line a
+the same outputs under the control and each planted fault that faults.py
+keys to the configuration's judge (the upper readings; `--faults` names
+a few of them). The numbers are that judge's `NUMBERS`. One JSON line a
 reading goes to FILE; the summary, each number's highest sound reading
 and lowest reading under each fault, to standard output.
 """
@@ -29,7 +30,6 @@ def main(argv):
     from portbench.bench import Cell
     from portbench.cellrun import check, measure
     from portbench.faults import FAULTS
-    from portbench.reference.check import NUMBERS
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
@@ -43,8 +43,10 @@ def main(argv):
         sys.stderr.write("no CUDA device\n")
         return 3
     cell = Cell(args.workload)
+    names = cell.judge().NUMBERS
+    faults = FAULTS[cell.check_name]
     device = torch.device("cuda", 0)
-    sound = {k: [] for k in NUMBERS}
+    sound = {k: [] for k in names}
     broken = {}
     with open(args.out, "a") as out:
         for n, seed in enumerate(int(s) for s in args.seeds.split(",")):
@@ -53,7 +55,7 @@ def main(argv):
                 run, _ = measure(cell, seed, args.seconds, False, device,
                                  time.monotonic(), tmp)
             chosen = (args.faults.split(",") if args.faults
-                      else list(FAULTS))
+                      else list(faults))
             variants = [None] + (chosen if n < args.fault_seeds else [])
             for fault in variants:
                 recs = copy.deepcopy(run.records)
@@ -63,7 +65,7 @@ def main(argv):
                         "facts": facts}
                 out.write(json.dumps(line) + "\n")
                 out.flush()
-                for k in NUMBERS:
+                for k in names:
                     if fault is None:
                         sound[k].append(numbers[k])
                     else:
@@ -71,7 +73,7 @@ def main(argv):
                             k, []).append(numbers[k])
     summary = {"workload": cell.name,
                "lower": {k: max(v) for k, v in sound.items()},
-               "sound_seeds": len(sound[NUMBERS[0]]),
+               "sound_seeds": len(sound[names[0]]),
                "upper_by_variant": {f: {k: min(v) for k, v in d.items()}
                                     for f, d in broken.items()}}
     print(json.dumps(summary))

@@ -1,8 +1,9 @@
-"""The control and the planted faults the check has to fail.
+"""The control and the planted faults the check has to fail, keyed by
+the judge that has to fail them (`FAULTS[check][name]`).
 
-Each rewrites what a window produced (a query's LAV text and the
-anchors its seed stage handed on) as a broken program would have
-produced it:
+Each rewrites what a window produced as a broken program would have
+produced it. For the LAV judge (reference/check.py), a query's LAV text
+and the anchors its seed stage handed on:
 
 - `control_int16`: the gapped stage computed in int16, the step below
   the int32 scores the configuration states, as GPU aligners that pack
@@ -29,9 +30,27 @@ produced it:
   with both matrices' top score of 100, below every threshold here),
   of an anchor that no alignment covers (of its first anchor where
   all are covered).
+
+For the any-or-none SAM judge (reference/anyornone.py), a read's SAM
+lines:
+
+- `control_plus_strand`: the search of one strand, where the
+  configuration states both: every reverse-strand line (flag 16) left
+  out.
+- `half_dropped`: half of the batch left out: the lines of every other
+  answered read.
+- `altered`: an answer altered where it is produced: each line's
+  position moved one base on.
+- `duplicated`: each alignment line written twice.
+- `unfiltered`: the filters dropped: each line's alignment cut to a
+  gap-free piece of its first PIECE aligned bases, under every
+  coverage filter of 20% or more and every gapped threshold above
+  PIECE times the top score (19 with `--match=1,<n>`).
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 
@@ -42,7 +61,7 @@ INT16_MAX = 32767
 
 
 def _strands(rec):
-    return lavmod.parse(rec.lav)
+    return lavmod.parse(rec.text)
 
 
 def _truncate(al, t, q, scores):
@@ -78,13 +97,13 @@ def control_int16(records, target, scores):
             q = rec.seq if st["rc"] == 0 else revcomp(rec.seq)
             st["aligns"] = [_truncate(al, target, q, scores)
                             for al in st["aligns"]]
-        rec.lav = lavmod.write(strands)
+        rec.text = lavmod.write(strands)
 
 
 def control_plus_strand(records, target, scores):
     for rec in records:
         strands = [st for st in _strands(rec) if st["rc"] == 0]
-        rec.lav = lavmod.write(strands)
+        rec.text = lavmod.write(strands)
         rec.anchors = {rc: a for rc, a in rec.anchors.items() if rc == 0}
 
 
@@ -103,7 +122,7 @@ def unchanged(records, target, scores):
                                            (200 * m + n) // (2 * n))]})
             strands.append({"rc": rc, "t_len": len(target), "q_len": len(q),
                             "aligns": aligns})
-        rec.lav = lavmod.write(strands)
+        rec.text = lavmod.write(strands)
 
 
 def half_dropped(records, target, scores):
@@ -111,7 +130,7 @@ def half_dropped(records, target, scores):
         strands = _strands(rec)
         for st in strands:
             st["aligns"] = st["aligns"][::2]
-        rec.lav = lavmod.write(strands)
+        rec.text = lavmod.write(strands)
         rec.anchors = {rc: a[::2] for rc, a in rec.anchors.items()}
 
 
@@ -122,7 +141,7 @@ def altered(records, target, scores):
             if st["aligns"]:
                 st["aligns"][0]["score"] += 1
                 break
-        rec.lav = lavmod.write(strands)
+        rec.text = lavmod.write(strands)
         moved = {}
         for rc, a in rec.anchors.items():
             a = a.copy()
@@ -137,7 +156,7 @@ def duplicated(records, target, scores):
         for st in strands:
             if st["aligns"]:
                 st["aligns"].insert(1, dict(st["aligns"][0]))
-        rec.lav = lavmod.write(strands)
+        rec.text = lavmod.write(strands)
 
 
 PIECE = 19
@@ -173,10 +192,66 @@ def unfiltered(records, target, scores):
             free = np.nonzero(~overlaps(np.asarray(a, np.int64), rows))[0]
             p1, p2, n, _ = (int(v) for v in a[free[0] if len(free) else 0])
             st["aligns"].append(_piece(p1, p2, n, target, q, scores))
-        rec.lav = lavmod.write([strands[rc] for rc in sorted(strands)])
+        rec.text = lavmod.write([strands[rc] for rc in sorted(strands)])
 
 
-FAULTS = {"control_int16": control_int16,
-          "control_plus_strand": control_plus_strand, "unchanged": unchanged,
-          "half_dropped": half_dropped, "altered": altered,
-          "duplicated": duplicated, "unfiltered": unfiltered}
+def _sam_lines(records, edit):
+    """Each record's SAM text with `edit(fields)` applied to every
+    alignment line; it returns the lines to write in its place."""
+    for rec in records:
+        out = []
+        for line in rec.text.splitlines(keepends=True):
+            if not line.strip() or line.startswith("@"):
+                out.append(line)
+                continue
+            out += ["\t".join(f) + "\n"
+                    for f in edit(line.rstrip("\n").split("\t"))]
+        rec.text = "".join(out)
+
+
+def sam_control_plus_strand(records, target, scores):
+    _sam_lines(records, lambda f: [] if int(f[1]) & 16 else [f])
+
+
+def sam_half_dropped(records, target, scores):
+    answered = [r for r in records
+                if any(ln and not ln.startswith("@")
+                       for ln in r.text.splitlines())]
+    _sam_lines(answered[::2], lambda f: [])
+
+
+def sam_altered(records, target, scores):
+    def edit(f):
+        f[3] = str(int(f[3]) + 1)
+        return [f]
+    _sam_lines(records, edit)
+
+
+def sam_duplicated(records, target, scores):
+    _sam_lines(records, lambda f: [f, list(f)])
+
+
+def sam_unfiltered(records, target, scores):
+    def edit(f):
+        ops = [(int(n), op) for n, op in re.findall(r"(\d+)([MIDS])", f[5])]
+        lead = ops[0][0] if ops[0][1] == "S" else 0
+        first = next(n for n, op in ops if op == "M")
+        k = min(PIECE, first)
+        rest = len(f[9]) - lead - k
+        f[5] = (f"{lead}S" if lead else "") + f"{k}M" + (
+            f"{rest}S" if rest else "")
+        return [f]
+    _sam_lines(records, edit)
+
+
+FAULTS = {
+    "check": {"control_int16": control_int16,
+              "control_plus_strand": control_plus_strand,
+              "unchanged": unchanged, "half_dropped": half_dropped,
+              "altered": altered, "duplicated": duplicated,
+              "unfiltered": unfiltered},
+    "anyornone": {"control_plus_strand": sam_control_plus_strand,
+                  "half_dropped": sam_half_dropped, "altered": sam_altered,
+                  "duplicated": sam_duplicated,
+                  "unfiltered": sam_unfiltered},
+}

@@ -7,8 +7,9 @@ a traffic mix's parameters fix the query records (lengths, the same
 set of sizes for every seed in another order; the share
 of each record that is orthologous to the target, in blocks or as one
 collinear copy, its identity, indels and lineage-specific insertions,
-orientation). Everything is drawn from (seed, key) with numpy in a few
-vectorised calls, so the same seed gives the same bytes.
+orientation; optionally `unrelated_share`, the share of whole records
+with no orthology at all). Everything is drawn from (seed, key) with
+numpy in a few vectorised calls, so the same seed gives the same bytes.
 """
 
 from __future__ import annotations
@@ -78,6 +79,10 @@ def indels(rng, seq: np.ndarray, rate: float, mean: float, top: int,
     if rate <= 0 or n == 0:
         return seq
     k = rng.binomial(n, rate)
+    if k == 0:
+        # the draws below would be of size 0, which leave the stream as
+        # it is: a short record is spared their cost
+        return seq
     pos = np.sort(rng.integers(0, n, k))
     length = np.minimum(rng.geometric(1.0 / mean, k), top)
     is_ins = rng.random(k) < 0.5
@@ -171,6 +176,12 @@ class GenomeModel:
         n = int(length if length is not None
                 else self.record_length(traffic, index))
         share = traffic["ortholog_share"]
+        # a share of whole records with no orthology (a read set's junk
+        # reads), decided by the record's own stream; absent or 0, no
+        # draw is made and every record is what it was without the key
+        unrelated = traffic.get("unrelated_share", 0)
+        if unrelated > 0 and rng.random() < unrelated:
+            share = 0
         g = self.g
         tlen = len(self.target)
         facts = {"length": n, "ortholog_bp": 0, "blocks": []}
@@ -232,8 +243,9 @@ class GenomeModel:
         log-uniform range (its middle), in an order drawn from the seed."""
         lo, hi = traffic["record_bp"]
         k = traffic["strata"]
-        order = rng_for(self.seed, STRATA_KEY, index // k).permutation(k)
-        d = order[index % k]
+        # a single stratum has no order to draw
+        d = 0 if k == 1 else rng_for(self.seed, STRATA_KEY,
+                                     index // k).permutation(k)[index % k]
         return int(np.exp(np.log(lo) + (d + 0.5) / k * np.log(hi / lo)))
 
     def _insertions(self, rng, seq, share):

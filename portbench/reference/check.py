@@ -1,4 +1,6 @@
-"""The comparison that decides `correct`.
+"""The LAV judge: the comparison that decides `correct` for every
+configuration that names no `check` (see reference/anyornone.py for
+one that does).
 
 It reads what the window produced (each query's LAV text and the
 anchors its seed stage handed to gapped extension) and judges it
@@ -208,7 +210,7 @@ def pick_sample(queries, n, rng):
 
 def judge(queries, target, cfg, scores, sample_n, rng, device="cpu"):
     """The numbers of one run. `queries`: what the window completed,
-    each with its forward bases `seq`, its LAV text `lav` and its
+    each with its forward bases `seq`, its LAV text `text` and its
     anchors by strand `anchors` ({0: array, 1: array}, rows of target
     start, query start, length, score)."""
     t0 = time.monotonic()
@@ -221,7 +223,7 @@ def judge(queries, target, cfg, scores, sample_n, rng, device="cpu"):
     parsed = []
     for qr in queries:
         try:
-            strands = lavmod.parse(qr["lav"])
+            strands = lavmod.parse(qr["text"])
         except (lavmod.LavError, ValueError, IndexError):
             bad_lav += 1
             parsed.append(None)

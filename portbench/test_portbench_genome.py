@@ -76,3 +76,36 @@ def test_same_sizes_every_seed(model):
         a = [model.record_length(tr, block * k + i) for i in range(k)]
         b = [other.record_length(tr, block * k + i) for i in range(k)]
         assert sorted(a) == sorted(b) and a != b
+
+
+READS = {"record_bp": [101, 101], "strata": 1, "ortholog_share": 1.0,
+         "block_bp": None, "identity": [0.97, 0.995],
+         "transition_share": 0.6667, "indel_rate": 0.002, "indel_mean": 1,
+         "indel_max": 3, "insert_share": 0.0, "reverse_share": 0.5}
+
+
+def test_unrelated_share(model):
+    """`unrelated_share` makes that share of whole records unrelated;
+    at 0 every record is what it is without the key."""
+    tr = dict(READS, unrelated_share=0.25)
+    facts = [model.record(tr, i)[2] for i in range(400)]
+    junk = np.mean([f["ortholog_bp"] == 0 for f in facts])
+    assert abs(junk - 0.25) < 0.06
+    assert all(f["ortholog_bp"] == 0 or f["blocks"] for f in facts)
+    for i in range(20):
+        a = model.record(READS, i)
+        b = model.record(dict(READS, unrelated_share=0.0), i)
+        assert a[0] == b[0] and np.array_equal(a[1], b[1])
+
+
+def test_pool_of_short_reads_is_bounded(model):
+    from portbench.bench import POOL_BP, POOL_RECORDS, make_pool
+    pool = make_pool(model, dict(READS, unrelated_share=0.1), POOL_BP)
+    assert len(pool) == POOL_RECORDS
+    assert pool[7][0] == model.record(dict(READS, unrelated_share=0.1),
+                                      7)[0]
+    # a traffic of long records stops at its bases, as before
+    tr = Cell("ucsc_mammal.ortholog").traffic
+    long = make_pool(model, tr, 1_000_000)
+    assert sum(len(s) for _, s in long[:-1]) < 1_000_000 <= sum(
+        len(s) for _, s in long)
