@@ -9,7 +9,8 @@ a query file whose `load()` hands over one record at a time until the
 window's seconds are spent; the output (LAV, SAM, whatever the
 configuration's options ask for) goes to an in-memory sink. A query is
 timed from its handover to the end of its processing, when its last
-output byte is written.
+output byte is written. The warm-up and the window each have to put
+work on the card (guard.py).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import time
 
 import numpy as np
 
+from . import guard
 from .genome import WARM_KEY, GenomeModel, fasta
 from .trace import Spans
 
@@ -273,8 +275,10 @@ class Run:
         warm = min(WARM_BP, self.traffic["record_bp"][1])
         name, seq, _ = self.model.record(self.traffic, 0, length=warm,
                                          key=WARM_KEY)
+        before = guard.work_count(self.device)
         self.drive(lambda i: (name, seq), lambda f: len(f.records) >= 1)
         self.sync()
+        guard.require_work(before, guard.work_count(self.device), "warm-up")
 
     def sync(self):
         if self.device.type == "cuda":
@@ -306,14 +310,19 @@ class Run:
 
     def window(self, seconds: float):
         """The measured window: queries until `seconds` after the first
-        handover; the last one in flight runs to its end."""
+        handover; the last one in flight runs to its end. It has to put
+        work on the card and complete a query (guard.py)."""
         def stop(feeder):
             recs = feeder.records
             return bool(recs) and time.monotonic() - recs[0].handover \
                 >= seconds
+        before = guard.work_count(self.device)
         self.records_all, _ = self.drive(self.source, stop)
         self.sync()
         self.end = time.monotonic()
+        guard.require_work(before, guard.work_count(self.device), "window")
         self.records = [r for r in self.records_all if r.done is not None]
+        if not self.records:
+            raise guard.EmptyWindow()
         self.start = self.records[0].handover
         return self.records

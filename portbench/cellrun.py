@@ -14,6 +14,7 @@ import time
 
 import numpy as np
 
+from . import guard
 from .bench import ROOT, Cell, Run
 from .faults import FAULTS
 from .reference.scoring import Scores, read_matrix
@@ -61,7 +62,8 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
             t0: float, tmpdir: str, genome=None, traffic=None,
             log=sys.stderr):
     """Set-up, window and readings of one run: (run, result line's object
-    without the check)."""
+    without the check). A run that cannot be measured raises
+    guard.Unmeasurable."""
     import torch
     run = Run(cell, seed, device, tmpdir, genome, traffic)
     run.setup()
@@ -84,8 +86,8 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
     reading = {"records": records, "window_s": window_s, "mbp": mbp,
                "walls": walls, "launches": launches, "device": None}
     if prof is not None:
-        reading["device"] = device_reading(
-            device_intervals(prof), run.end - host0, host0, run.spans)
+        reading["device"] = guard.traced(device_reading(
+            device_intervals(prof), run.end - host0, host0, run.spans))
     log.write(f"card: {card_line(device)}\n")
     log.write(f"queries completed in the window: {len(records)}, "
               f"{mbp:.6f} Mbp in {window_s:.6f} s; per-query p50 "
@@ -187,9 +189,12 @@ def main(argv, t0) -> int:
         return 3
     device = torch.device("cuda", 0)
     tmp_root = os.environ.get("TMPDIR") or None
-    with tempfile.TemporaryDirectory(dir=tmp_root) as tmpdir:
-        result = execute(cell, args.seed, args.seconds, bool(args.trace),
-                         device, t0, tmpdir)
+    try:
+        with tempfile.TemporaryDirectory(dir=tmp_root) as tmpdir:
+            result = execute(cell, args.seed, args.seconds,
+                             bool(args.trace), device, t0, tmpdir)
+    except guard.Unmeasurable as failure:
+        return guard.ended(failure, sys.stderr)
     found = forbidden_modules()
     if found:
         sys.stderr.write(f"forbidden modules loaded: {found}\n")

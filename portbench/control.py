@@ -27,6 +27,7 @@ PROCESS_START = time.monotonic()
 def main(argv):
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    from portbench import guard
     from portbench.bench import Cell
     from portbench.cellrun import check, measure
     from portbench.faults import FAULTS
@@ -50,10 +51,15 @@ def main(argv):
     broken = {}
     with open(args.out, "a") as out:
         for n, seed in enumerate(int(s) for s in args.seeds.split(",")):
-            with tempfile.TemporaryDirectory(
-                    dir=os.environ.get("TMPDIR") or None) as tmp:
-                run, _ = measure(cell, seed, args.seconds, False, device,
-                                 time.monotonic(), tmp)
+            try:
+                with tempfile.TemporaryDirectory(
+                        dir=os.environ.get("TMPDIR") or None) as tmp:
+                    run, _ = measure(cell, seed, args.seconds, False,
+                                     device, time.monotonic(), tmp)
+            except guard.Unmeasurable as failure:
+                # a configuration whose runs never drive the card gets
+                # no limits
+                return guard.ended(failure, sys.stderr)
             chosen = (args.faults.split(",") if args.faults
                       else list(faults))
             variants = [None] + (chosen if n < args.fault_seeds else [])
