@@ -124,6 +124,32 @@ class SegmentTable:
         if segs:
             self.low_score = segs[0].score
 
+    def add_many(self, pos1, pos2, length, score, seg_id=0):
+        """`add` of each row in turn (equal-length int arrays, or lists
+        of ints), each taking a new hsp_id, on a table without a
+        coverage limit: a plain list, so the rows are appended at
+        once."""
+        assert self.coverage_limit == 0
+        pos1, pos2, length, score = (
+            a.tolist() if isinstance(a, np.ndarray) else list(a)
+            for a in (pos1, pos2, length, score))
+        n = len(score)
+        if n == 0:
+            return
+        low = min(score)
+        if self.segments:
+            low = min(low, self.low_score)
+        first = SegmentTable._hsp_id_counter + 1
+        SegmentTable._hsp_id_counter += n
+        self.segments.extend(
+            Segment(p1, p2, ln, sc, seg_id, hid, score_cov=ln)
+            for p1, p2, ln, sc, hid in zip(pos1, pos2, length, score,
+                                            range(first, first + n)))
+        self.coverage += sum(length)
+        self.low_score = low
+        if any(sc != 0 for sc in score):
+            self.have_scores = True
+
     def _record_tie_score(self, ix) -> bool:
         segs = self.segments
         seg = segs[ix]

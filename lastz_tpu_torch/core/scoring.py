@@ -637,13 +637,17 @@ def entropy(s: np.ndarray, t: np.ndarray) -> float:
     base composition, with probabilities divided by the full alignment
     length (not the match count).
     """
-    length = len(s)
     eq = s == t
-    counts = []
-    for ch in BITS_TO_NUC:
-        counts.append(int(np.count_nonzero(eq & (s == ch))))
-    total = sum(counts)
-    if total < 20:
+    counts = [int(np.count_nonzero(eq & (s == ch))) for ch in BITS_TO_NUC]
+    return entropy_from_counts(counts, len(s))
+
+
+def entropy_from_counts(counts, length: int) -> float:
+    """`entropy` of an alignment of `length` columns whose matched
+    upper-case A, C, G, T number `counts` (four ints): the one scalar
+    formula, shared by `entropy` and the seed stage's array replay
+    (search/device_hits.py), so both give the same float to the bit."""
+    if sum(counts) < 20:
         return 1.0
     acc = 0.0
     for c in counts:

@@ -199,6 +199,13 @@ def _load():
         i64, i64, i64, i64, i64,
         p_i64, p_i64, p_i64, p_i64, p_i64,
     ]
+    lib.xdrop_extend_many.restype = None
+    lib.xdrop_extend_many.argtypes = [
+        p_u8, p_u8, p_i64,        # s1, s2, sub (256x256)
+        i64, p_i64, p_i64,        # n, pos1, pos2
+        p_i64, p_i64, i64,        # stop_left, stop_right, x_drop
+        p_i64,                    # out (5, n)
+    ]
     f64 = ctypes.c_double
     p_f64 = ctypes.POINTER(ctypes.c_double)
     lib.chain_reduce.restype = None

@@ -456,6 +456,25 @@ void xdrop_extend(
                       out_right_block);
 }
 
+// xdrop_extend of n hits in one call (the seed stage's array replay of
+// bind rows, search/device_hits.py): hit i from its own stop_left[i]
+// and stop_right[i]; out holds five rows of n: left_start, left_score,
+// right_stop, right_score, right_block.
+void xdrop_extend_many(
+    const uint8_t* s1, const uint8_t* s2, const int64_t* sub,
+    int64_t n, const int64_t* pos1, const int64_t* pos2,
+    const int64_t* stop_left, const int64_t* stop_right,
+    int64_t x_drop, int64_t* out)
+{
+    SimdCtx ctx;
+    simd_ctx_init(&ctx, sub, x_drop);
+    for (int64_t i = 0; i < n; ++i)
+        xdrop_extend_impl(s1, s2, sub, &ctx, pos1[i], pos2[i],
+                          stop_left[i], stop_right[i], x_drop,
+                          out + i, out + n + i, out + 2 * n + i,
+                          out + 3 * n + i, out + 4 * n + i);
+}
+
 // Narrow-state row step used by ydrop_sweep: int32 cell values and
 // row stamps (scores are s32 by the same contract as the reference's
 // `score` type), and the substitution scores for the row's span are

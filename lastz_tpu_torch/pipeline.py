@@ -954,6 +954,16 @@ class Pipeline:
                     self._collect_mirror(pos1, pos2, length, s, rcf)
                 return length
 
+            def many(pos1, pos2, length, s):
+                # the reporter on int arrays of rows, in order (the
+                # device search's replay, search/device_hits.py)
+                anchors.add_many(pos1 - length, pos2 - length, length, s,
+                                 rcf)
+                return length
+
+            if not cfg.mirror_hsp:
+                reporter.many = many
+
         search_limit = cfg.search_limit
         if search_limit > 0 and prev_anchor_count > 0:
             if prev_anchor_count < search_limit:

@@ -22,7 +22,14 @@ threshold survivors.  A launch with more survivors than OUT_CAP, or a
 hash chain longer than the resolver's cap, leaves the diagonal state
 untouched and is re-run as two half ranges.  The survivors are
 replayed on the host through the engine's own reporting (the engine
-is the contract).
+is the contract): as arrays where no survivor reads state that
+another's report writes (the bind rows, whose left extension crossed
+the diagonal's old extent, re-extended by the engine in one native
+call; then scores, entropy counts, threshold and the kept rows
+reported in order, at once where the reporter has a bulk form), else
+one candidate at a time.  Counters: "replay candidates", "replay bulk candidates"
+(those of the array replay), "replay bind re-extensions" and "replay
+entropy rows" (rows of the array replay given the entropy factor).
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ import torch
 from .. import stats as _stats
 from ..config import GFEX_NO_EXTEND, GFEX_XDROP
 from ..core import scoring as _scoring
-from ..core.scoring import entropy
+from ..core.encoding import BITS_TO_NUC
+from ..core.scoring import entropy, entropy_from_counts
 from ..device import carry_state, stream_key
 from ..kernels import build
 from ..ops.hitgen import (HIT_BUDGET, OUT_CAP, expand_chunk, hit_launch,
@@ -97,6 +105,52 @@ def _csr_resolve_on(pt, device):
         cached = per_stream[sk] = (
             pt.csr_resolve, torch.from_numpy(words.view(np.int32)).to(device))
     return cached[1]
+
+
+# the bases of the array replay's entropy slices gathered at once
+_ENTROPY_BLOCK = 1 << 22
+# matched upper-case A, C, G, T -> 0..3, anything else -> 4
+_NUC_CODE = np.full(256, 4, dtype=np.int64)
+_NUC_CODE[np.frombuffer(BITS_TO_NUC, dtype=np.uint8)] = np.arange(4)
+
+
+def _match_counts(seq1, seq2, end1, end2, length):
+    """(rows, 4) counts of the matched upper-case A, C, G, T of
+    seq1[end1 - length: end1] against seq2[end2 - length: end2], per
+    row: one gather of every row's bases, one bincount over row ids."""
+    m = length.shape[0]
+    cum = np.cumsum(length)
+    row = np.repeat(np.arange(m), length)
+    k = np.arange(row.shape[0])
+    a = seq1[k + (end1 - cum)[row]]
+    b = seq2[k + (end2 - cum)[row]]
+    code = _NUC_CODE[a]
+    code[a != b] = 4
+    return np.bincount(row * 5 + code, minlength=5 * m).reshape(m, 5)[:, :4]
+
+
+def _entropies(seq1, seq2, end1, end2, length):
+    """`entropy` of each row's slices (as _match_counts), float64: the
+    counts in blocks of at most _ENTROPY_BLOCK bases (or one row), then
+    core.scoring.entropy_from_counts once per distinct counts and
+    length."""
+    n = length.shape[0]
+    cum = np.cumsum(length)
+    q = []
+    memo = {}
+    lo = 0
+    while lo < n:
+        hi = max(lo + 1, int(np.searchsorted(
+            cum, cum[lo] - length[lo] + _ENTROPY_BLOCK, "right")))
+        counts = _match_counts(seq1, seq2, end1[lo:hi], end2[lo:hi],
+                               length[lo:hi])
+        for key in zip(*counts.T.tolist(), length[lo:hi].tolist()):
+            v = memo.get(key)
+            if v is None:
+                v = memo[key] = entropy_from_counts(key[:4], key[4])
+            q.append(v)
+        lo = hi
+    return np.array(q, dtype=np.float64)
 
 
 def device_search(engine, device, start: int = 0, end: int = 0):
@@ -204,10 +258,17 @@ def device_search(engine, device, start: int = 0, end: int = 0):
     diag_end = engine.diag_end
     bases_hit = 0
     trip_pos = -1
+    bulk = (thresh_is_score and thresh == hp.hsp_threshold.s
+            and not no_extend
+            and engine.search_limit <= 0
+            and _scoring.SCORE_TYPE != "D"
+            and engine._native is not None)
 
     def process_candidates(out_np, n):
         """Host replay of the per-candidate reporting sequence
-        (search/batched.py:322-378; the engine is the contract)."""
+        (search/batched.py:322-378; the engine is the contract), one
+        candidate at a time: the path of configurations the array
+        replay (replay_rows) does not take."""
         nonlocal bases_hit, trip_pos
         (pos1a, pos2a, grpa, lsc, lst, rsc, rst, de_b,
          bind) = [out_np[r, :n] for r in range(9)]
@@ -262,6 +323,53 @@ def device_search(engine, device, start: int = 0, end: int = 0):
                 trip_pos = g
         return True
 
+    def replay_rows(r, bind):
+        """The array replay of one launch's survivors (rows of out, as
+        int64): the bind rows' scans redone by the engine at once, then
+        each row's score, entropy and threshold as the loop above
+        computes them, and one report of the kept rows in order."""
+        nonlocal bases_hit
+        pos1, pos2, _, lscore, lstart, rscore, rstop, de_before, _ = r
+        if bind.size:
+            redone = engine._xdrop_extend_many(pos1[bind], pos2[bind],
+                                               de_before[bind])
+            for row, v in zip((lstart, lscore, rstop, rscore), redone):
+                row[bind] = v
+        diag = pos1 - pos2
+        similarity = lscore + rscore
+        new_pos1 = rstop
+        new_pos2 = new_pos1 - diag
+        new_length = new_pos1 - lstart
+        if hp.entropic_hsp:
+            adj = np.flatnonzero((similarity >= hp.hsp_zero_threshold)
+                                 & (similarity <= 3 * thresh))
+            if adj.size:
+                st.add("replay entropy rows", int(adj.size))
+                q = _entropies(seq1, seq2, new_pos1[adj], new_pos2[adj],
+                               new_length[adj])
+                # int(similarity * q): a float product, truncated
+                similarity[adj] = (similarity[adj] * q).astype(np.int64)
+        keep = np.flatnonzero(similarity >= thresh)
+        if keep.size:
+            bases_hit += engine._report_many(
+                new_pos1[keep], new_pos2[keep], new_length[keep],
+                similarity[keep])
+            st.hsps += int(keep.size)
+
+    def replay(out_np, n):
+        """Replay one launch's n survivors: as arrays where no survivor
+        reads state another one writes (an integer score threshold, no
+        search limit, integer scores, an extension, the engine's native
+        scans for the bind rows); else the loop."""
+        st.add("replay candidates", n)
+        bind = np.flatnonzero(out_np[8, :n])
+        st.add("replay bind re-extensions", int(bind.size))
+        st.add("replay bulk candidates", n if bulk else 0)
+        if not bulk:
+            return process_candidates(out_np, n)
+        replay_rows(out_np[:, :n].astype(np.int64), bind)
+        return True
+
     for c in range(n_chunks):
         total = totals[c]
         if total == 0:
@@ -303,7 +411,7 @@ def device_search(engine, device, start: int = 0, end: int = 0):
             st.ungapped_extensions += int(scalars[3])
             if n_keep:
                 with st.time("hitgen report"):
-                    if not process_candidates(out_np, n_keep):
+                    if not replay(out_np, n_keep):
                         return bases_hit
         if trip_pos >= 0 and c < n_chunks - 1:
             engine.limit_exceeded = True

@@ -405,6 +405,20 @@ class SeedSearchEngine:
             self.search_to_go -= 1
         return got
 
+    def _report_many(self, pos1, pos2, length, s) -> int:
+        """`_report` of each row in turn (int arrays): through the
+        reporter's bulk form `reporter.many` where it has one, which
+        returns what each row's call would have, else one call a row."""
+        many = getattr(self.reporter, "many", None)
+        if many is not None:
+            got = many(pos1, pos2, length, s)
+        else:
+            got = np.array([self.reporter(*row) for row in zip(
+                pos1.tolist(), pos2.tolist(), length.tolist(), s.tolist())],
+                dtype=np.int64)
+        self.search_to_go -= int(np.count_nonzero(got > 0))
+        return int(got.sum())
+
     def _process_plain(self, pos1, pos2, length) -> int:
         hp = self.hp
         if hp.pos_filter and self._filter_by_pos(pos1, pos2, length):
@@ -689,6 +703,42 @@ class SeedSearchEngine:
         if hp.hsp_threshold.t == "S" and similarity < hp.hsp_threshold.s:
             return None
         return new_pos1, new_pos2, new_length, similarity
+
+    def _xdrop_extend_many(self, pos1, pos2, diag_end):
+        """The scans of `_xdrop_extend` for each hit in turn (int64
+        arrays of end positions), its hashed diagonal's extent first
+        set to `diag_end` (int64 array): one native call, then the
+        extents recorded as the calls would leave them.  Returns
+        (left_start, left_score, right_stop, right_score), before
+        entropy and threshold.  Needs the native library."""
+        lib, ctypes = self._native
+        n = len(pos1)
+        diag = pos1 - pos2
+        stop1 = np.maximum(diag_end + diag, 0)
+        stop1r = np.minimum(len(self.seq1), len(self.seq2) + diag)
+        out = np.empty((5, n), dtype=np.int64)
+        p_u8 = ctypes.POINTER(ctypes.c_uint8)
+        p_i64 = ctypes.POINTER(ctypes.c_int64)
+        lib.xdrop_extend_many(
+            self.seq1.ctypes.data_as(p_u8), self.seq2.ctypes.data_as(p_u8),
+            self._sub.ctypes.data_as(p_i64), n,
+            *(np.ascontiguousarray(a, dtype=np.int64).ctypes.data_as(p_i64)
+              for a in (pos1, pos2, stop1, stop1r)),
+            self.hp.x_drop, out.ctypes.data_as(p_i64))
+        # each hit sets its hash to diag_end[i], then raises it to its
+        # extent (and diag_actual to its diagonal): the last hit on a
+        # hash leaves its extent, the last one that raised it its
+        # diagonal
+        h = diag & (DIAG_HASH_SIZE - 1)
+        extent = out[4] - diag
+        _, at = np.unique(h[::-1], return_index=True)
+        last = n - 1 - at
+        self.diag_end[h[last]] = np.maximum(diag_end[last], extent[last])
+        up = np.flatnonzero(extent > diag_end)[::-1]
+        _, at = np.unique(h[up], return_index=True)
+        self.diag_actual[h[up[at]]] = diag[up[at]]
+        self._unblocked_left = False
+        return out[0], out[1], out[2], out[3]
 
     def _xdrop_extend_native(self, pos1, pos2, length, diag, h,
                              old_diag_end, stop1):

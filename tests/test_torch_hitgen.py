@@ -453,3 +453,176 @@ def test_unsupported_modes_go_to_the_host_engine():
     assert device_hits.device_search.runs == runs
     assert st.extra.get("seed host searches") == 1
     assert hits == ref and len(ref) > 0
+
+
+def _gapped_blocks_pair(parts=4, n=1000, seed=21):
+    """A query of `parts` pieces of n bp against a target holding each
+    piece twice, 65536 bp apart, so that both copies' diagonals share
+    one hash (a hash of its own for each piece): the first copy whole,
+    the second cut every 300 bp by 15 transversions (its hits come
+    first at each query position).  A hit on the whole copy just past
+    a cut extends left across the extent that the cut copy's block left
+    on the hash (a bind row), and the block cuts that extension short.
+    (AC)n and A-rich low-complexity stretches give scores that entropy
+    lowers."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    x = alpha[rng.integers(0, 4, parts * n)]
+    for lo in range(150, parts * n - 600, 900):
+        x[lo: lo + 60] = np.frombuffer(b"AC" * 30, dtype=np.uint8)
+        x[lo + 450: lo + 530] = np.where(rng.random(80) < 0.8, ord("A"),
+                                         ord("T"))
+    cut = x.copy()
+    for lo in range(300, parts * n, 300):
+        # transversions (A->C, C->G, G->T, T->A)
+        cut[lo: lo + 15] = alpha[(np.searchsorted(alpha, x[lo: lo + 15])
+                                  + 1) % 4]
+    s1 = alpha[rng.integers(0, 4, 65536 + parts * (n + 100) + 500)]
+    for i in range(parts):
+        at = i * (n + 100)
+        s1[at: at + n] = x[i * n: (i + 1) * n]
+        s1[65536 + at: 65536 + at + n] = cut[i * n: (i + 1) * n]
+    s2 = x.copy()
+    mut = rng.random(len(s2)) < 0.04
+    s2[mut] = alpha[rng.integers(0, 4, int(mut.sum()))]
+    return s1, s2
+
+
+def _anchor_search(s1, s2, loop, many=True, gf_extend=tconfig.GFEX_XDROP,
+                   thresh=("S", 3000), entropic=True, search_limit=0):
+    """The port's device search (on the CPU) into an anchors table, as
+    the pipeline's anchors-mode reporter fills it, with its bulk form
+    where `many`.  `loop` takes the engine's native scans away, which
+    keeps the per-candidate loop.  Returns the table's rows (pos1,
+    pos2, length, score, seg_id, hsp_id) in order, bases_hit,
+    search_to_go and the replay counters."""
+    from lastz_tpu_torch.align.segments import SegmentTable
+    seed, pt, hp = _port_engine_inputs(s1, "1110100110010101111", 1,
+                                       gf_extend, 0, 910)
+    hp.hsp_threshold = tconfig.ScoreThreshold(*thresh)
+    hp.entropic_hsp = entropic
+    anchors = SegmentTable(coverage_limit=thresh[1] if thresh[0] == "C"
+                           else 0)
+
+    def reporter(pos1, pos2, length, s):
+        anchors.add(pos1 - length, pos2 - length, length, s, 1)
+        return length
+
+    if many:
+        def bulk(pos1, pos2, length, s):
+            anchors.add_many(pos1 - length, pos2 - length, length, s, 1)
+            return length
+        reporter.many = bulk
+    eng = SeedSearchEngine(s1, pt, s2, seed, UPPER_NUC_TO_BITS, hp,
+                           reporter, device=CPU, anchors=anchors,
+                           search_limit=search_limit)
+    if loop:
+        eng._native = None
+    SegmentTable._hsp_id_counter = 5000
+    st = tstats.reset()
+    bases = eng.search(0, len(s2))
+    rows = [(g.pos1, g.pos2, g.length, g.score, g.seg_id, g.hsp_id)
+            for g in anchors]
+    return rows, bases, eng.search_to_go, _replay_counts(st)
+
+
+REPLAY_COUNTERS = ("replay candidates", "replay bulk candidates",
+                   "replay bind re-extensions", "replay entropy rows")
+
+
+def _replay_counts(st):
+    return {k: st.extra.get(k, 0) for k in REPLAY_COUNTERS}
+
+
+def _report_mode_run(s1, s2, tmp_path, monkeypatch, capsys, loop):
+    """The port's CLI with --nogapped on the CPU device, whose pipeline
+    prints each anchor as it comes (report mode: a reporter with no
+    bulk form); `loop` as in _anchor_search.  Returns the output, bases
+    (None) and search_to_go (None) in _anchor_search's places, and the
+    replay counters."""
+    from lastz_tpu_torch import cli
+    from lastz_tpu_torch.pipeline import Pipeline
+    paths = []
+    for name, v in (("t", s1), ("q", s2)):
+        path = tmp_path / f"{name}.fa"
+        path.write_bytes(b">" + name.encode() + b"\n" + v.tobytes() + b"\n")
+        paths.append(str(path))
+    modes = []
+    with monkeypatch.context() as m:
+        m.setenv("LASTZ_TORCH_DEVICE", "cpu")
+        m.delenv("LASTZ_TPU_DEVICE", raising=False)
+        uncached = Pipeline._reporter_mode_uncached
+        m.setattr(Pipeline, "_reporter_mode_uncached",
+                  lambda self: modes.append(uncached(self)) or modes[-1])
+        if loop:
+            init = SeedSearchEngine.__init__
+
+            def init_without_native(self, *a, **kw):
+                init(self, *a, **kw)
+                self._native = None
+            m.setattr(SeedSearchEngine, "__init__", init_without_native)
+        capsys.readouterr()
+        assert cli.main(paths + ["--nogapped"]) == 0
+    assert modes == ["report"]
+    return capsys.readouterr().out, None, None, _replay_counts(tstats.current)
+
+
+# name: (_anchor_search keywords, OUT_CAP, whether the array replay runs)
+REPLAY_CASES = {
+    "entropy": (dict(), None, True),
+    "bind_rows": (dict(thresh=("S", 2000)), None, True),
+    "out_cap_split": (dict(thresh=("S", 2000)), 64, True),
+    "report_mode": (None, None, True),
+    "coverage_threshold": (dict(thresh=("C", 4000)), None, False),
+    "search_limit": (dict(search_limit=10 ** 6), None, False),
+    "no_extend": (dict(gf_extend=tconfig.GFEX_NO_EXTEND,
+                       thresh=("S", 0)), None, False),
+}
+
+
+@pytest.mark.parametrize("case", list(REPLAY_CASES))
+def test_array_replay_matches_the_loop(case, tmp_path, monkeypatch, capsys):
+    """The array replay of the device's survivors (score, entropy,
+    threshold, bind rows re-extended at once, the kept rows reported in
+    order) fills the anchors table as the per-candidate loop does: the
+    same rows, scores and hsp_ids in order, bases_hit and search_to_go,
+    through the reporter's bulk form and through one call a row; and
+    the pipeline's report mode prints the same matches.  Where a
+    configuration keeps the loop, no row takes the array replay."""
+    kw, out_cap, arrays = REPLAY_CASES[case]
+    s1, s2 = _gapped_blocks_pair()
+    if out_cap is not None:
+        monkeypatch.setattr(device_hits, "OUT_CAP", out_cap)
+    if kw is None:
+        def search(loop):
+            return _report_mode_run(s1, s2, tmp_path, monkeypatch, capsys,
+                                    loop)
+    else:
+        def search(loop, **more):
+            return _anchor_search(s1, s2, loop, **kw, **more)
+    loop = search(loop=True)
+    got = search(loop=False)
+    assert got[:3] == loop[:3]
+    assert len(loop[0]) > 0
+    counts = got[3]
+    assert counts["replay candidates"] > 0
+    assert loop[3]["replay bulk candidates"] == 0
+    if not arrays:
+        assert counts["replay bulk candidates"] == 0
+        return
+    assert counts["replay bulk candidates"] == counts["replay candidates"]
+    if case == "entropy":
+        # low-complexity stretches push candidates under K
+        assert counts["replay entropy rows"] > 0
+        assert search(loop=False, many=False)[:3] == loop[:3]
+        plain = search(loop=False, entropic=False)
+        assert plain[0] != got[0]
+    elif case == "report_mode":
+        # each match printed as an ungapped LAV block
+        assert loop[0].count("\na {") > 1
+    else:
+        assert counts["replay bind re-extensions"] > 0
+        assert counts["replay bind re-extensions"] < counts[
+            "replay candidates"]
+    if out_cap is not None:
+        assert counts["replay candidates"] > out_cap

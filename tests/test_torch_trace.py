@@ -173,11 +173,20 @@ def test_counters_and_their_deltas(runs):
     for k in ("target reuses", "target builds"):
         assert sum(s.counts.get(k, 0) for s in queries) == st.extra[k], k
     assert queries[1].counts.get("target builds", 0) == 0
+    # the seed stage's replay: every survivor through the array replay
+    # (an integer score threshold, no search limit, an extension)
+    replay = ("replay candidates", "replay bulk candidates",
+              "replay bind re-extensions", "replay entropy rows")
+    assert st.extra["replay bulk candidates"] \
+        == st.extra["replay candidates"] > 0
+    assert st.extra["replay entropy rows"] > 0
+    for k in replay:
+        assert sum(s.counts.get(k, 0) for s in queries) == st.extra[k], k
     out = io.StringIO()
     st.show(out)
     for k in ("upload hits", "digest bytes", "hitgen setup target",
               "ydrop wait", "tweener", "target reuses", "target builds",
-              "target patches", "target patch bytes"):
+              "target patches", "target patch bytes") + replay:
         assert k in out.getvalue(), k
 
 
