@@ -26,10 +26,9 @@ stages:
     decisions are final after d rounds).
  4. REPORT (host): hits surviving the hash protocol are threshold-
     filtered vectorized (the entropy multiplier is <= 1, so raw score
-    below a positive threshold can never pass), and only genuine HSP
-    candidates reach the per-hit Python path: entropy adjustment,
-    the rare left-block-bound re-extension (exact scalar), and the
-    reporter call sequence in the original order.
+    below a positive threshold can never pass), and the genuine HSP
+    candidates become HSPs through search/replay.py, reported in the
+    original order.
 
 The scalar engine remains both the oracle and the fallback for the
 exotic modes (recoverable/twin hits, quantum, overweight seeds,
@@ -42,8 +41,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..config import GFEX_NO_EXTEND, GFEX_XDROP
-from ..core.scoring import entropy
 from ..index.postable import _window_words
+from .replay import Replay
 
 HASH_INACTIVE = -1
 DIAG_HASH_SIZE = 65536
@@ -435,7 +434,6 @@ def batched_search(engine, start: int = 0, end: int = 0,
     from .. import stats as _stats
     st = _stats.current
     st.words_in_queries += n_pos
-    bases_hit = 0
     POS_CHUNK = 1 << 20
     de = engine.diag_end
     da = engine.diag_actual
@@ -443,15 +441,13 @@ def batched_search(engine, start: int = 0, end: int = 0,
     thresh = hp.hsp_threshold.s
     seq1 = engine.seq1
     seq2 = engine.seq2
-    from ..core.scoring import SCORE_TYPE
-
-    trip_pos = -1  # valid-position index where the search limit hit
 
     twin = engine.hit_mode == "twin"
     if twin:
         from . import twins as _twins
         twin_snap = _twins.snapshot(engine)
-        pending = []  # (g, pos1, pos2, length, score, counts_as_hsp)
+    # twins report once the whole search has resolved
+    rp = Replay(engine, defer=twin, restore=True)
 
     for pos_lo in range(0, n_pos, POS_CHUNK):
         pos_hi = min(pos_lo + POS_CHUNK, n_pos)
@@ -525,6 +521,7 @@ def batched_search(engine, start: int = 0, end: int = 0,
         de_before[order] = de_before_s
 
         if no_extend:
+            bind = np.zeros(H, bool)
             cand_mask = alive
         else:
             lc = ext["left_consumed"]
@@ -542,99 +539,17 @@ def batched_search(engine, start: int = 0, end: int = 0,
         st.hash_dropped_hits += int((~alive).sum())
         st.ungapped_extensions += int(alive.sum())
 
-        cand_idx = np.nonzero(cand_mask)[0]
-        for i in cand_idx:
-            g = int(grp[i])
-            if not twin and trip_pos >= 0 and g > trip_pos:
-                engine.limit_exceeded = True
-                if engine.on_limit_exceeded is not None:
-                    engine.on_limit_exceeded()
-                return bases_hit
-            pos1 = int(pos1a[i])
-            pos2 = int(pos2a[i])
-            diag = int(diag_a[i])
-            if no_extend:
-                bases_hit += engine._report(pos1, pos2, L, 0)
-            elif bind[i]:
-                # exact scalar re-extension under the left block; the
-                # extent it records was already folded into the chunk-
-                # final chain state, so restore that state afterwards
-                hh = int(h_a[i])
-                saved = int(de[hh])
-                saved_da = int(da[hh])
-                de[hh] = int(de_before[i])
-                engine._unblocked_left = False
-                r = engine._xdrop_extend(pos1, pos2, L)
-                de[hh] = max(saved, int(de[hh]))
-                da[hh] = saved_da
-                if r is None:
-                    continue
-                if twin:
-                    pending.append((g, *r, True))
-                else:
-                    bases_hit += engine._report(*r)
-                    st.hsps += 1
-            else:
-                left_score = int(ext["left_score"][i])
-                left_start = int(ext["left_start"][i])
-                right_score = int(ext["right_score"][i])
-                right_stop = int(ext["right_stop"][i])
-                similarity = left_score + right_score
-                new_pos1 = right_stop
-                new_pos2 = new_pos1 - diag
-                new_length = right_stop - left_start
-                # entropy adjustment (seed_search.c:2850-2905)
-                adjust = False
-                if hp.entropic_hsp:
-                    if thresh_is_score:
-                        adjust = (similarity >= hp.hsp_zero_threshold
-                                  and similarity <= 3 * thresh)
-                    elif similarity > 0:
-                        anch = engine.anchors
-                        adjust = (anch is not None and len(anch) > 0
-                                  and similarity >= anch.low_score)
-                if adjust:
-                    q = entropy(
-                        seq1[new_pos1 - new_length: new_pos1],
-                        seq2[new_pos2 - new_length: new_pos2])
-                    similarity = (similarity * q if SCORE_TYPE == "D"
-                                  else int(similarity * q))
-                if thresh_is_score and similarity < thresh:
-                    continue
-                if twin:
-                    pending.append((g, new_pos1, new_pos2,
-                                    new_length, similarity, True))
-                else:
-                    bases_hit += engine._report(new_pos1, new_pos2,
-                                                new_length, similarity)
-                    st.hsps += 1
-            if (not twin and engine.search_limit > 0
-                    and engine.search_to_go < 0 and trip_pos < 0):
-                trip_pos = g
-        if trip_pos >= 0 and pos_hi < n_pos:
-            engine.limit_exceeded = True
-            if engine.on_limit_exceeded is not None:
-                engine.on_limit_exceeded()
-            return bases_hit
+        cand = np.flatnonzero(cand_mask)
+        scores = [np.zeros(len(cand), np.int64) if no_extend
+                  else ext[k][cand].astype(np.int64) for k in (
+                      "left_score", "left_start", "right_score",
+                      "right_stop")]
+        ok = rp.rows(pos1a[cand], pos2a[cand], grp[cand], *scores,
+                     de_before[cand], bind[cand])
+        if not ok or rp.stop(pos_hi < n_pos):
+            return rp.bases_hit
 
-    if twin:
-        # deferred dispatch in original order with the scalar
-        # engine's search-limit granularity
-        for (g, p1, p2, ln, s, is_hsp) in pending:
-            if trip_pos >= 0 and g > trip_pos:
-                engine.limit_exceeded = True
-                if engine.on_limit_exceeded is not None:
-                    engine.on_limit_exceeded()
-                return bases_hit
-            bases_hit += engine._report(p1, p2, ln, s)
-            if is_hsp:
-                st.hsps += 1
-            if (engine.search_limit > 0 and engine.search_to_go < 0
-                    and trip_pos < 0):
-                trip_pos = g
-
-    if trip_pos >= 0 and trip_pos < n_pos - 1:
-        engine.limit_exceeded = True
-        if engine.on_limit_exceeded is not None:
-            engine.on_limit_exceeded()
-    return bases_hit
+    if twin and not rp.flush():
+        return rp.bases_hit
+    rp.stop(rp.trip_pos < n_pos - 1)
+    return rp.bases_hit

@@ -32,7 +32,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from ..core.scoring import ScoreSet, entropy
+from ..core.scoring import ScoreSet
 from ..core.seeds import Seed
 from ..index.postable import PositionTable, _window_words
 from ..config import (
@@ -42,6 +42,7 @@ from ..config import (
     GFEX_MISMATCH_BASE,
     ScoreThreshold,
 )
+from .replay import hsp
 
 DIAG_HASH_SIZE = 65536
 HASH_INACTIVE = -1
@@ -236,10 +237,7 @@ class SeedSearchEngine:
                         for j in range(i + 1, nf):
                             bases_hit += self._probe(p1 ^ flips[j], pos2)
             if self.search_limit > 0 and self.search_to_go < 0:
-                # warn_for_search_limit (seed_search.c:551,3795)
-                self.limit_exceeded = True
-                if self.on_limit_exceeded is not None:
-                    self.on_limit_exceeded()
+                self._trip_limit()
                 return bases_hit
         return bases_hit
 
@@ -316,9 +314,7 @@ class SeedSearchEngine:
             for word in packed.tolist():
                 bases_hit += self._probe(int(word), qpos_end)
             if self.search_limit > 0 and self.search_to_go < 0:
-                self.limit_exceeded = True
-                if self.on_limit_exceeded is not None:
-                    self.on_limit_exceeded()
+                self._trip_limit()
                 return bases_hit
         return bases_hit
 
@@ -398,6 +394,14 @@ class SeedSearchEngine:
         if self.hit_mode == "twin":
             return self._process_twin(pos1, pos2, length)
         return self._process_simple(pos1, pos2, length)
+
+    def _trip_limit(self) -> None:
+        """The search limit ran out (warn_for_search_limit,
+        seed_search.c:551,3795): flag it, and warn through the caller's
+        hook."""
+        self.limit_exceeded = True
+        if self.on_limit_exceeded is not None:
+            self.on_limit_exceeded()
 
     def _report(self, pos1, pos2, length, s) -> int:
         got = self.reporter(pos1, pos2, length, s)
@@ -634,11 +638,6 @@ class SeedSearchEngine:
             left_score = 0
             left_start = pos1
 
-        # hit body shorter than extension -> trim length
-        hit_left = pos1 - length
-        if left_start > hit_left:
-            length -= left_start - hit_left
-
         # --- right scan: from pos1 to stop
         block2r = len(seq2)
         stop1r = len(seq1) if len(seq1) <= block2r + diag else block2r + diag
@@ -678,31 +677,15 @@ class SeedSearchEngine:
             self.diag_end[h] = extent
             self.diag_actual[h] = diag
 
-        # new coordinates
-        new_pos1 = right_stop
-        new_pos2 = new_pos1 - diag
-        new_length = right_stop - left_start
+        return hsp(self, similarity, right_stop, right_stop - diag,
+                   right_stop - left_start)
 
-        # entropy adjustment (seed_search.c:2850-2905)
-        adjust = False
-        if hp.entropic_hsp:
-            if hp.hsp_threshold.t == "S":
-                adjust = (similarity >= hp.hsp_zero_threshold
-                          and similarity <= 3 * hp.hsp_threshold.s)
-            elif similarity > 0:
-                anch = self.anchors
-                adjust = (anch is not None and len(anch) > 0
-                          and similarity >= anch.low_score)
-        if adjust:
-            q = entropy(seq1[new_pos1 - new_length : new_pos1],
-                        seq2[new_pos2 - new_length : new_pos2])
-            from ..core.scoring import SCORE_TYPE
-            similarity = (similarity * q if SCORE_TYPE == "D"
-                          else int(similarity * q))
-
-        if hp.hsp_threshold.t == "S" and similarity < hp.hsp_threshold.s:
-            return None
-        return new_pos1, new_pos2, new_length, similarity
+    def _xdrop_extend_from(self, pos1, pos2, length, diag_end):
+        """`_xdrop_extend` with the hashed diagonal's extent first set to
+        `diag_end`: the scalar form of `_xdrop_extend_many`."""
+        self.diag_end[(pos1 - pos2) & (DIAG_HASH_SIZE - 1)] = diag_end
+        self._unblocked_left = False
+        return self._xdrop_extend(pos1, pos2, length)
 
     def _xdrop_extend_many(self, pos1, pos2, diag_end):
         """The scans of `_xdrop_extend` for each hit in turn (int64
@@ -765,39 +748,14 @@ class SeedSearchEngine:
         right_stop, right_score = rs.value, rsc.value
         right_block = rb.value
 
-        hit_left = pos1 - length
-        if left_start > hit_left:
-            length -= left_start - hit_left
-
         similarity = left_score + right_score
         extent = right_block - diag
         if extent > self.diag_end[h]:
             self.diag_end[h] = extent
             self.diag_actual[h] = diag
 
-        new_pos1 = right_stop
-        new_pos2 = new_pos1 - diag
-        new_length = right_stop - left_start
-
-        adjust = False
-        if hp.entropic_hsp:
-            if hp.hsp_threshold.t == "S":
-                adjust = (similarity >= hp.hsp_zero_threshold
-                          and similarity <= 3 * hp.hsp_threshold.s)
-            elif similarity > 0:
-                anch = self.anchors
-                adjust = (anch is not None and len(anch) > 0
-                          and similarity >= anch.low_score)
-        if adjust:
-            q = entropy(seq1[new_pos1 - new_length : new_pos1],
-                        seq2[new_pos2 - new_length : new_pos2])
-            from ..core.scoring import SCORE_TYPE
-            similarity = (similarity * q if SCORE_TYPE == "D"
-                          else int(similarity * q))
-
-        if hp.hsp_threshold.t == "S" and similarity < hp.hsp_threshold.s:
-            return None
-        return new_pos1, new_pos2, new_length, similarity
+        return hsp(self, similarity, right_stop, right_stop - diag,
+                   right_stop - left_start)
 
     def _match_extend(self, pos1: int, pos2: int, length: int):
         """Exact-match extension (match_extend_seed_hit, seed_search.c):

@@ -20,6 +20,7 @@ import numpy as np
 
 from ..config import GFEX_NO_EXTEND, GFEX_XDROP
 from .batched import DIAG_HASH_SIZE, _probe_budgets, _probe_xors
+from .replay import Replay
 
 HASH_INACTIVE = -1
 
@@ -228,25 +229,8 @@ def native_hit_search(engine, start: int = 0, end: int = 0,
                              + int(res.ext_steps))
 
     n = int(res.n_out)
-    bases_hit = 0
-    trip_pos = -1
-    for j in range(n):
-        g = int(out["grp"][j])
-        if trip_pos >= 0 and g > trip_pos:
-            engine.limit_exceeded = True
-            if engine.on_limit_exceeded is not None:
-                engine.on_limit_exceeded()
-            return bases_hit
-        bases_hit += engine._report(
-            int(out["pos1"][j]), int(out["pos2"][j]),
-            int(out["len"][j]), int(out["score"][j]))
-        if not no_extend:
-            st.hsps += 1
-        if (engine.search_limit > 0 and engine.search_to_go < 0
-                and trip_pos < 0):
-            trip_pos = g
-    if trip_pos >= 0 and trip_pos < n_pos - 1:
-        engine.limit_exceeded = True
-        if engine.on_limit_exceeded is not None:
-            engine.on_limit_exceeded()
-    return bases_hit
+    rp = Replay(engine)
+    if rp.report(zip(*(out[k][:n].tolist()
+                       for k in ("grp", "pos1", "pos2", "len", "score")))):
+        rp.stop(rp.trip_pos < n_pos - 1)
+    return rp.bases_hit

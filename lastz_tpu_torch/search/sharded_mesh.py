@@ -55,7 +55,6 @@ import numpy as np
 import torch
 
 from ..config import GFEX_XDROP
-from ..core.scoring import entropy
 from ..device import SEQ_PAD, content_key, get_device, resolve_device
 from ..index.postable import _window_words
 from ..index.sharded import build_sharded_position_table
@@ -64,11 +63,15 @@ from ..ops.xdrop_cuda import xdrop_scan
 from ..ops.ydrop_exact import make_compact_alphabet
 from .batched import (DIAG_HASH_SIZE, HASH_INACTIVE, MIN64, _probe_xors,
                       _resolve_chains)
+from .replay import Replay
 
 # extension halo (bases) resident beyond each shard's owned interval;
 # overridable for tests that force the halo-gather path
 EXT_HALO = int(os.environ.get("LASTZ_TORCH_SHARD_HALO", "32768"))
 OUT_ROWS = 9  # pos1, k, lb, lk, rb, rk, lc, rc, eflag
+# candidate buffer a shard and range; a range whose candidates overflow
+# it is split in halves (tests patch it to force the split)
+CAP = 1 << 15
 # the shards' device slots (see the module docstring)
 SHARD_SLOTS = None
 
@@ -389,7 +392,6 @@ def sharded_mesh_search(engine, index: MeshShardedIndex,
         index.code_map[engine.seq2]
 
     PCH = 1 << 14
-    CAP = int(os.environ.get("LASTZ_TORCH_SHARD_CAP", str(1 << 15)))
     n_chunks = (num_w + PCH - 1) // PCH
     pad = n_chunks * PCH - num_w
     host_in = (np.concatenate([packed_np, np.zeros(pad, np.int64)]),
@@ -419,9 +421,7 @@ def sharded_mesh_search(engine, index: MeshShardedIndex,
     thresh = hp.hsp_threshold.s
     seq1 = engine.seq1
     seq2 = engine.seq2
-    from ..core.scoring import SCORE_TYPE
-    bases_hit = 0
-    trip_pos = -1
+    rp = Replay(engine, restore=True)
 
     def run_ranges(chunk_lo):
         """Per-shard candidate buffers for window range [p_lo, p_hi)
@@ -537,13 +537,11 @@ def sharded_mesh_search(engine, index: MeshShardedIndex,
                     extent_s[j] = p1 + int(rc[i]) - d
                 cur = max(cur, int(extent_s[j]))
 
-        ext = dict(
-            left_consumed=lc,
-            left_score=np.where(lb > 0, lb, 0),
-            left_start=np.where(lb > 0, pos1a - 1 - lk, pos1a),
-            right_consumed=rc,
-            right_score=np.where(rb > 0, rb, 0),
-            right_stop=np.where(rb > 0, pos1a + rk + 1, pos1a))
+        # the extension's left score and start, right score and stop
+        scores = (np.where(lb > 0, lb, 0),
+                  np.where(lb > 0, pos1a - 1 - lk, pos1a),
+                  np.where(rb > 0, rb, 0),
+                  np.where(rb > 0, pos1a + rk + 1, pos1a))
 
         contrib = np.where(alive_s, extent_s, MIN64)
         seg_max = np.maximum.reduceat(
@@ -558,7 +556,7 @@ def sharded_mesh_search(engine, index: MeshShardedIndex,
 
         stop1_blk = np.maximum(de_before + diag_a, 0)
         bind = alive & (lc > pos1a - stop1_blk)
-        sim_raw = ext["left_score"] + ext["right_score"]
+        sim_raw = scores[0] + scores[2]
         if thresh_is_score and thresh > 0:
             cand_mask = alive & (bind | (sim_raw >= thresh))
         else:
@@ -568,64 +566,12 @@ def sharded_mesh_search(engine, index: MeshShardedIndex,
         st.hash_dropped_hits += int((~alive).sum())
         st.ungapped_extensions += int(alive.sum())
 
-        for i in np.nonzero(cand_mask)[0]:
-            g = int(grp[i])
-            if trip_pos >= 0 and g > trip_pos:
-                engine.limit_exceeded = True
-                if engine.on_limit_exceeded is not None:
-                    engine.on_limit_exceeded()
-                return bases_hit
-            pos1 = int(pos1a[i])
-            pos2 = int(pos2a[i])
-            diag = int(diag_a[i])
-            if bind[i]:
-                hh = int(h_a[i])
-                saved = int(de[hh])
-                saved_da = int(engine.diag_actual[hh])
-                de[hh] = int(de_before[i])
-                engine._unblocked_left = False
-                r = engine._xdrop_extend(pos1, pos2, L)
-                de[hh] = max(saved, int(de[hh]))
-                engine.diag_actual[hh] = saved_da
-                if r is None:
-                    continue
-                bases_hit += engine._report(*r)
-            else:
-                similarity = int(sim_raw[i])
-                new_pos1 = int(ext["right_stop"][i])
-                new_pos2 = new_pos1 - diag
-                new_length = new_pos1 - int(ext["left_start"][i])
-                adjust = False
-                if hp.entropic_hsp:
-                    if thresh_is_score:
-                        adjust = (similarity >= hp.hsp_zero_threshold
-                                  and similarity <= 3 * thresh)
-                    elif similarity > 0:
-                        anch = engine.anchors
-                        adjust = (anch is not None and len(anch) > 0
-                                  and similarity >= anch.low_score)
-                if adjust:
-                    q = entropy(
-                        seq1[new_pos1 - new_length: new_pos1],
-                        seq2[new_pos2 - new_length: new_pos2])
-                    similarity = (similarity * q if SCORE_TYPE == "D"
-                                  else int(similarity * q))
-                if thresh_is_score and similarity < thresh:
-                    continue
-                bases_hit += engine._report(new_pos1, new_pos2,
-                                            new_length, similarity)
-                st.hsps += 1
-            if (engine.search_limit > 0 and engine.search_to_go < 0
-                    and trip_pos < 0):
-                trip_pos = g
-        if trip_pos >= 0 and c < n_chunks - 1:
-            engine.limit_exceeded = True
-            if engine.on_limit_exceeded is not None:
-                engine.on_limit_exceeded()
-            return bases_hit
+        cand = np.flatnonzero(cand_mask)
+        ok = rp.rows(pos1a[cand], pos2a[cand], grp[cand],
+                     *(a[cand] for a in scores), de_before[cand],
+                     bind[cand])
+        if not ok or rp.stop(c < n_chunks - 1):
+            return rp.bases_hit
 
-    if trip_pos >= 0:
-        engine.limit_exceeded = True
-        if engine.on_limit_exceeded is not None:
-            engine.on_limit_exceeded()
-    return bases_hit
+    rp.stop()
+    return rp.bases_hit

@@ -22,6 +22,7 @@ from lastz_tpu_torch.ops import xdrop_batch as txb
 
 from test_device_path import _make_pair
 from test_torch_isolation import QSCORES, quantum_pair
+import torch_threads  # noqa: F401  (a share of the cores per xdist worker)
 
 KEYS = ("left_consumed", "left_score", "left_start", "right_consumed",
         "right_score", "right_stop")

@@ -25,6 +25,7 @@ from chip_smoke import (CHAIN_EDGES, WALK_EDGE_CAPS, WALK_EDGE_GEOMETRY,
                         XDROP_EDGES, chain_edge_inputs, chain_walk_args,
                         cut_codes, walk_inputs, xdrop_edge_inputs)
 from test_hitgen import _related_pair
+import torch_threads  # noqa: F401  (a share of the cores per xdist worker)
 
 
 def _mega_inputs(seed=21, n=1500, Bh=6, W=256, y_drop=3000, rows=64,

@@ -37,6 +37,7 @@ from lastz_tpu_torch.kernels import build
 from lastz_tpu_torch.stats import RunStats as TRunStats
 
 from test_farm_multichip import _make_inputs
+import torch_threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QSCORES = os.path.join(REPO, "tests", "golden", "quantum", "qscores.txt")
@@ -352,7 +353,7 @@ def test_two_process_gloo_run(port_cpu, tmp_path, census):
     args = [t, q, "--format=lav", "--ydrop=3000"] + (
         ["--census"] if census else [])
     addr = f"tcp://127.0.0.1:{_free_port()}"
-    penv = dict(os.environ, LASTZ_TORCH_DIST="1", LASTZ_TORCH_DEVICE="cpu")
+    penv = torch_threads.env(LASTZ_TORCH_DIST="1", LASTZ_TORCH_DEVICE="cpu")
     procs = [subprocess.Popen(
         [sys.executable, "-c", DIST_WORKER % {"repo": REPO}, str(rank), "2",
          addr, str(tmp_path), *args], env=penv, cwd=REPO, text=True,

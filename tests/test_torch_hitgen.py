@@ -6,6 +6,8 @@ and the device search reports the scalar engine's and lastz_tpu's
 device search's hits, in order.  Inputs come from a numpy seed; the
 tolerance is exact equality (hit lists and integer scores)."""
 
+import contextlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -33,6 +35,7 @@ from lastz_tpu_torch.search.engine import SeedSearchEngine
 from chip_smoke import (CHAIN_EDGES, XDROP_EDGES, chain_edge_inputs,
                         chain_walk_args, xdrop_edge_inputs)
 from test_hitgen import SCALAR, _collect, _collect_seed, _related_pair
+import torch_threads  # noqa: F401  (a share of the cores per xdist worker)
 
 CPU = torch.device("cpu")
 
@@ -489,13 +492,16 @@ def _gapped_blocks_pair(parts=4, n=1000, seed=21):
 
 
 def _anchor_search(s1, s2, loop, many=True, gf_extend=tconfig.GFEX_XDROP,
-                   thresh=("S", 3000), entropic=True, search_limit=0):
+                   thresh=("S", 3000), entropic=True, search_limit=0,
+                   shards=0, **engine_kw):
     """The port's device search (on the CPU) into an anchors table, as
     the pipeline's anchors-mode reporter fills it, with its bulk form
-    where `many`.  `loop` takes the engine's native scans away, which
-    keeps the per-candidate loop.  Returns the table's rows (pos1,
-    pos2, length, score, seg_id, hsp_id) in order, bases_hit,
-    search_to_go and the replay counters."""
+    where `many`; under `shards`, the sharded search on that many CPU
+    slots; `engine_kw` (twins) sends it to the batched search.  `loop`
+    takes the engine's native scans away, which keeps the
+    per-candidate loop.  Returns the table's rows (pos1, pos2, length,
+    score, seg_id, hsp_id) in order, bases_hit, search_to_go and the
+    replay counters."""
     from lastz_tpu_torch.align.segments import SegmentTable
     seed, pt, hp = _port_engine_inputs(s1, "1110100110010101111", 1,
                                        gf_extend, 0, 910)
@@ -515,12 +521,19 @@ def _anchor_search(s1, s2, loop, many=True, gf_extend=tconfig.GFEX_XDROP,
         reporter.many = bulk
     eng = SeedSearchEngine(s1, pt, s2, seed, UPPER_NUC_TO_BITS, hp,
                            reporter, device=CPU, anchors=anchors,
-                           search_limit=search_limit)
+                           search_limit=search_limit, **engine_kw)
     if loop:
         eng._native = None
     SegmentTable._hsp_id_counter = 5000
     st = tstats.reset()
-    bases = eng.search(0, len(s2))
+    if shards:
+        from lastz_tpu_torch.search import sharded_mesh as tsm
+        index = tsm.MeshShardedIndex(s1, UPPER_NUC_TO_BITS, seed, pt.step,
+                                     shards, eng._sub, slots=["cpu"] * shards)
+        bases = tsm.sharded_mesh_search(eng, index)
+        assert bases is not None
+    else:
+        bases = eng.search(0, len(s2))
     rows = [(g.pos1, g.pos2, g.length, g.score, g.seg_id, g.hsp_id)
             for g in anchors]
     return rows, bases, eng.search_to_go, _replay_counts(st)
@@ -571,7 +584,11 @@ def _report_mode_run(s1, s2, tmp_path, monkeypatch, capsys, loop):
 REPLAY_CASES = {
     "entropy": (dict(), None, True),
     "bind_rows": (dict(thresh=("S", 2000)), None, True),
-    "out_cap_split": (dict(thresh=("S", 2000)), 64, True),
+    # 728 survivors in one launch: a cap of 512 splits it once
+    "out_cap_split": (dict(thresh=("S", 2000)), 512, True),
+    "batched_twins": (dict(thresh=("S", 2000), hit_mode="twin",
+                           twin_min_span=20, twin_max_span=200), None, True),
+    "sharded": (dict(thresh=("S", 2000), shards=2), None, True),
     "report_mode": (None, None, True),
     "coverage_threshold": (dict(thresh=("C", 4000)), None, False),
     "search_limit": (dict(search_limit=10 ** 6), None, False),
@@ -584,7 +601,8 @@ REPLAY_CASES = {
 def test_array_replay_matches_the_loop(case, tmp_path, monkeypatch, capsys):
     """The array replay of the device's survivors (score, entropy,
     threshold, bind rows re-extended at once, the kept rows reported in
-    order) fills the anchors table as the per-candidate loop does: the
+    order), and of the batched search's on twins and the sharded
+    search's, fills the anchors table as the per-candidate loop does: the
     same rows, scores and hsp_ids in order, bases_hit and search_to_go,
     through the reporter's bulk form and through one call a row; and
     the pipeline's report mode prints the same matches.  Where a
@@ -626,3 +644,83 @@ def test_array_replay_matches_the_loop(case, tmp_path, monkeypatch, capsys):
             "replay candidates"]
     if out_cap is not None:
         assert counts["replay candidates"] > out_cap
+
+
+@pytest.mark.parametrize("loop", [False, True], ids=["arrays", "loop"])
+def test_replay_restore_keeps_the_diagonal_state(loop):
+    """Under `restore` (the batched and sharded tiers, whose chunk-final
+    diagonal state already holds every survivor's extent) the bind
+    rows' re-extensions leave diag_end and diag_actual at their hash
+    as they were; without it (the device tier) they write them.  The
+    same HSPs either way, in the array form and in the loop."""
+    from lastz_tpu_torch.search.replay import Replay
+    rng = np.random.default_rng(4)
+    s1 = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, 6000)]
+    far, diag = len(s1) + 10 ** 6, 7
+
+    def replay(restore):
+        seed, pt, hp = _port_engine_inputs(s1, "1110100110010101111", 1,
+                                           tconfig.GFEX_XDROP, 0, 910)
+        hits = []
+        eng = SeedSearchEngine(
+            s1, pt, s1.copy(), seed, UPPER_NUC_TO_BITS, hp,
+            lambda p1, p2, ln, s: hits.append((p1, p2, ln, s)) or ln)
+        if loop:
+            eng._native = None
+        eng.diag_end[0], eng.diag_actual[0] = far, diag
+        tstats.reset()
+        # two bind rows on diagonal 0 (hash 0), from a block at 0
+        pos = np.array([1500, 4500], np.int64)
+        zero = np.zeros(2, np.int64)
+        rp = Replay(eng, restore=restore)
+        assert rp.bulk == (not loop)
+        assert rp.rows(pos, pos.copy(), zero, zero.copy(), zero.copy(),
+                       zero.copy(), zero.copy(), zero.copy(),
+                       np.ones(2, bool))
+        return hits, int(eng.diag_end[0]), int(eng.diag_actual[0])
+
+    kept, written = replay(True), replay(False)
+    assert kept[0] == written[0] and len(kept[0]) == 2
+    assert kept[1:] == (far, diag)
+    assert written[1:] == (len(s1), 0)
+
+
+@pytest.mark.parametrize("tier", ["device", "native_sweep", "batched"])
+def test_search_limit_stops_where_the_scalar_engine_stops(tier):
+    """A search limit that runs out early in the query stops each tier
+    after the query position where it ran out, as the port's scalar
+    engine does: the same hits, bases_hit and search_to_go, and the
+    limit flagged and its hook called once."""
+    from unittest import mock
+    s1, s2 = _gapped_blocks_pair()
+
+    def search(tier):
+        seed, pt, hp = _port_engine_inputs(s1, "1110100110010101111", 1,
+                                           tconfig.GFEX_XDROP, 2000, 910)
+        hits, trips = [], []
+        eng = SeedSearchEngine(
+            s1, pt, s2, seed, UPPER_NUC_TO_BITS, hp,
+            lambda p1, p2, ln, s: hits.append((p1, p2, ln, s)) or ln,
+            device=CPU if tier == "device" else None, search_limit=5,
+            on_limit_exceeded=lambda: trips.append(1))
+        off = {"native_sweep": [], "batched": ["native_sweep"],
+               "scalar": ["native_sweep", "batched"]}.get(tier, [])
+        with contextlib.ExitStack() as stack:
+            for mod, fn in (("native_sweep", "native_hit_search"),
+                            ("batched", "batched_search")):
+                if mod in off:
+                    stack.enter_context(mock.patch(
+                        f"lastz_tpu_torch.search.{mod}.{fn}",
+                        lambda *a, **k: None))
+            st = tstats.reset()
+            bases = eng.search(0, len(s2))
+        return hits, bases, eng.search_to_go, eng.limit_exceeded, trips, st
+
+    ref = search("scalar")
+    got = search(tier)
+    assert got[:5] == ref[:5]
+    assert ref[3] and ref[4] == [1] and len(ref[0]) > 5
+    # the tier ran: the device's and the batched search's survivors
+    # go through the replay, the native sweep's do not
+    counts = _replay_counts(got[5])
+    assert (counts["replay candidates"] > 0) == (tier != "native_sweep")

@@ -34,6 +34,7 @@ from lastz_tpu_torch.index.postable import (
     build_seed_position_table_device)
 
 from test_device_path import _make_pair
+import torch_threads  # noqa: F401  (a share of the cores per xdist worker)
 
 CPU = torch.device("cpu")
 

@@ -17,6 +17,7 @@ from lastz_tpu.cli import main as host_main
 from lastz_tpu.core import scoring as host_scoring
 
 from test_device_path import _make_pair
+import torch_threads
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QSCORES = os.path.join(ROOT, "tests", "golden", "quantum", "qscores.txt")
@@ -248,7 +249,7 @@ def _host(args):
 def run_blocked(args):
     """The port's CLI in a child process with `jax` and `lastz_tpu`
     blocked, on the CPU; returns its standard output."""
-    env = dict(os.environ, LASTZ_TORCH_DEVICE="cpu")
+    env = torch_threads.env(LASTZ_TORCH_DEVICE="cpu")
     env.pop("LASTZ_TPU_DEVICE", None)
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED, ROOT, *args],

@@ -23,6 +23,7 @@ from lastz_tpu_torch.search import device_hits
 
 from test_device_path import _make_pair
 from test_torch_isolation import run_blocked
+import torch_threads  # noqa: F401  (a share of the cores per xdist worker)
 
 
 def _host(args):

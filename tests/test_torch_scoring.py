@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from lastz_tpu.core.scoring import entropy
+import torch_threads  # noqa: F401  (a share of the cores per xdist worker)
 
 
 def _slice_pairs(kind, rng):
@@ -53,7 +54,7 @@ def test_entropy_from_counts_equals_entropy(kind):
 def test_match_counts_equal_count_nonzero():
     """The seed stage's vectorised counts (one gather, one bincount)
     equal count_nonzero over each slice, lower case and N included."""
-    from lastz_tpu_torch.search.device_hits import _match_counts
+    from lastz_tpu_torch.search.replay import _match_counts
     rng = np.random.default_rng(7)
     alpha = np.frombuffer(b"ACGTacgtNNRY", dtype=np.uint8)
     seq1 = alpha[rng.integers(0, len(alpha), 5000)]

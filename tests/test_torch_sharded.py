@@ -9,6 +9,7 @@ own unsharded paths; and the CLI under LASTZ_TORCH_SHARDS=2 against
 lastz_tpu's CLI under LASTZ_TPU_SHARDS=2."""
 
 import contextlib
+import functools
 import io
 import os
 import subprocess
@@ -43,6 +44,7 @@ import test_sharded_index
 import test_sharded_mesh
 import test_ydrop_sharded
 from test_device_path import _make_pair
+import torch_threads  # noqa: F401  (a share of the cores per xdist worker)
 
 jax = pytest.importorskip("jax")
 
@@ -141,6 +143,12 @@ def _port_scalar_hits(s1, s2, step=1):
     return hits
 
 
+@functools.cache
+def _seqs_scalar_hits():
+    """_port_scalar_hits on test_sharded_mesh._seqs(), once a module."""
+    return _port_scalar_hits(*test_sharded_mesh._seqs())
+
+
 def _port_mesh_hits(s1, s2, n_shards, halo, step=1):
     seed = parse_seed(SEED19, with_trans=1)
     sc = new_dna_score_set()
@@ -170,7 +178,7 @@ def test_sharded_search_equals_lastz_tpu_and_scalar(n_shards):
     assert len(ref) > 0
     got, index = _port_mesh_hits(s1, s2, n_shards, 2048)
     assert got == ref
-    assert got == _port_scalar_hits(s1, s2)
+    assert got == _seqs_scalar_hits()
     assert index.per_device_target_bytes == jindex.per_device_target_bytes
     np.testing.assert_array_equal(index.res_lo, jindex.res_lo)
     np.testing.assert_array_equal(index.res_hi, jindex.res_hi)
@@ -186,7 +194,7 @@ def test_sharded_search_halo_gather():
     tstats.reset()
     got, _ = _port_mesh_hits(s1, s2, 4, 512)
     assert tstats.current.extra.get("shard halo-gathers", 0) > 0
-    assert got == ref == _port_scalar_hits(s1, s2)
+    assert got == ref == _seqs_scalar_hits()
 
 
 def test_sharded_search_cap_split(monkeypatch):
@@ -201,9 +209,9 @@ def test_sharded_search_cap_split(monkeypatch):
         ranges.append(dyn[1:3])
         return own(index, inputs, dyn, statics)
     monkeypatch.setattr(tsm, "_mesh_program", counted)
-    monkeypatch.setenv("LASTZ_TORCH_SHARD_CAP", "2048")
+    monkeypatch.setattr(tsm, "CAP", 2048)
     got, _ = _port_mesh_hits(s1, s2, 2, 2048)
-    assert got == want == _port_scalar_hits(s1, s2)
+    assert got == want == _seqs_scalar_hits()
     n_chunks = -(-len(s2) // (1 << 14))
     assert len(ranges) > 4 * n_chunks  # split, and split again
     assert min(hi - lo for lo, hi in ranges) <= 1 << 11

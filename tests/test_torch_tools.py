@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 import pytest
+import torch_threads  # noqa: F401  (a share of the cores per xdist worker)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -19,6 +19,7 @@ from lastz_tpu_torch.cli import parse_options
 from lastz_tpu_torch.pipeline import Pipeline
 from portbench.cellrun import reader
 from portbench.program_idle import ProgramSpans, gaps
+import torch_threads  # noqa: F401  (a share of the cores per xdist worker)
 
 # the buckets the benchmark's harness reads (portbench/bench.py TIMERS)
 HARNESS_TIMERS = ("seed search", "hitgen report", "hitgen setup", "gapped",

@@ -21,6 +21,7 @@ from lastz_tpu_torch.ops.ydrop_cuda import (traceback_mega, ydrop_chunk,
 
 from chip_smoke import WALK_EDGE_CAPS, walk_inputs
 from test_torch_cuda import _mega_inputs
+import torch_threads  # noqa: F401  (a share of the cores per xdist worker)
 
 CASES = {
     # name: (B, rows, W, y_drop, div, trim_to_peak, tb_cap, chunks, seed)

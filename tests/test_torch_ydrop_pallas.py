@@ -17,6 +17,7 @@ import torch
 from lastz_tpu.core.scoring import new_dna_score_set
 from lastz_tpu.ops import ydrop_pallas as jp
 from lastz_tpu_torch.ops import ydrop_pallas as tp
+import torch_threads  # noqa: F401  (a share of the cores per xdist worker)
 
 BAND, ROWS, B = 128, 128, 40  # B is not a multiple of SUBBATCH (32)
 GAP_E, GAP_OE = 30, 430
